@@ -1,0 +1,74 @@
+"""The per-round consensus plan: FediAC's GIA as a first-class object.
+
+Phase-2 selection is a deterministic function of the summed vote counts,
+identical on every client (paper Sec. III-B).  :func:`build_round_plan`
+runs that selection exactly once per round, and every client's compress
+step takes the resulting :class:`RoundPlan`.
+
+Only the top-k plan is ported (``idx``/``keep`` plus the dense ``sel``
+mask of the fused kernel); the block plan and the streaming slot map are
+queued in ROADMAP.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import compaction
+
+__all__ = ["RoundPlan", "build_round_plan", "consensus_floor_threshold"]
+
+
+def consensus_floor_threshold(counts: torch.Tensor, a, floor: int) -> torch.Tensor:
+    """Dense-mask fallback: when fewer than ``floor`` coordinates reach the
+    vote threshold the round degrades to ``a = 1`` (every voted coordinate
+    is kept) instead of aggregating a near-empty selection.  Stays on the
+    device: the result only enters ``counts >= a`` comparisons."""
+    a = torch.as_tensor(a, dtype=torch.int32, device=counts.device)
+    live = (counts >= a).sum(dtype=torch.int32)
+    return torch.where(live < floor, torch.ones_like(a), a)
+
+
+class RoundPlan(NamedTuple):
+    """Consensus selection for one round, shared by all N clients.
+
+    ``idx`` int32[C] consensus coordinate order (count-desc, index-asc —
+    the stable top_k permutation), ``keep`` float32[C] in {0,1} flagging
+    entries whose count reached the vote threshold, and ``sel`` uint8[d]
+    the dense 0/1 selection mask, built on demand for the fused
+    gather-quant kernel.
+    """
+
+    idx: torch.Tensor
+    keep: torch.Tensor
+    sel: Optional[torch.Tensor] = None
+
+    @property
+    def capacity(self) -> int:
+        return self.idx.shape[-1]
+
+
+def build_round_plan(counts: torch.Tensor, cfg, n_clients: int, *, a=None,
+                     with_dense_mask: bool = False) -> RoundPlan:
+    """Run the once-per-round consensus selection from the vote counts.
+
+    ``counts`` int32[d//g] summed votes; ``cfg`` a FediACConfig; ``a``
+    optionally overrides ``cfg.threshold(n_clients)``.
+    """
+    if cfg.compact_mode != "topk":
+        raise NotImplementedError(
+            f"compact_mode={cfg.compact_mode!r} is not ported yet "
+            "(ROADMAP: threshold/block modes)")
+    if a is None:
+        a = cfg.threshold(n_clients)
+    if getattr(cfg, "consensus_floor", 0) > 0:
+        a = consensus_floor_threshold(counts, a, cfg.consensus_floor)
+    n_chunks = counts.shape[-1]
+    idx, keep = compaction.consensus_indices(counts, a, cfg.capacity(n_chunks))
+    sel = None
+    if with_dense_mask:
+        sel = torch.zeros((n_chunks,), dtype=torch.uint8, device=counts.device)
+        sel[idx.long()] = keep.to(torch.uint8)
+    return RoundPlan(idx=idx, keep=keep, sel=sel)

@@ -17,6 +17,8 @@ def pytest_addoption(parser):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: full benchmark grids, excluded from tier-1 runs")
+    config.addinivalue_line(
+        "markers", "requires_cuda: needs an NVIDIA GPU; skipped without one")
 
 
 def pytest_collection_modifyitems(config, items):
