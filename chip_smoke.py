@@ -207,10 +207,7 @@ def _fl_setup():
 def _round_cfg(g):
     from repro_torch.core.engines import EngineSpec
     from repro_torch.core.fediac import FediACConfig
-    # use_pallas on the spec (the engine selector) and on the config (read
-    # by aggregate_stack / aggregate_from_counts when called directly)
-    return FediACConfig(vote_chunk=g, use_pallas=True,
-                        engine=EngineSpec(use_pallas=True))
+    return FediACConfig(vote_chunk=g, engine=EngineSpec(use_pallas=True))
 
 
 def phase_main_path(u_stack, key) -> dict:
@@ -284,7 +281,9 @@ def phase_checks(u_stack, key, main) -> dict:
           "FL traffic / wall-clock differ card vs CPU")
     acc_gap = max(abs(a - b) for a, b in zip(hist.acc, h_cpu.acc))
     loss_gap = max(abs(a - b) for a, b in zip(hist.loss, h_cpu.loss))
-    check(acc_gap <= 0.02 and loss_gap <= 0.02,
+    # the same float32 arithmetic through other matmul kernels: gaps of
+    # ~1e-7 are rounding, a wrong phase-2 step moves the model further
+    check(acc_gap <= 1e-5 and loss_gap <= 1e-5,
           f"FL card vs CPU: acc gap {acc_gap}, loss gap {loss_gap}")
     log(f"[checks] FL card vs CPU: traffic and wall-clock equal; acc gap "
         f"{acc_gap:.3g}, loss gap {loss_gap:.3g}")

@@ -1,36 +1,34 @@
 """The engine registry: one dispatch surface for the stacked FediAC round.
 
-A frozen :class:`EngineSpec` names an engine and carries its tuning knobs;
-:func:`run` dispatches a round to it.  Only ``"monolithic"``
-(:func:`repro_torch.core.fediac.aggregate_stack`) is ported; the
-reference's other engines are known names that raise
-``NotImplementedError`` naming their ROADMAP item.
+A frozen :class:`EngineSpec` names an engine and carries its knobs;
+:func:`run` dispatches a round to the engine a config selects.  Only
+``"monolithic"`` (:func:`repro_torch.core.fediac.aggregate_stack`) is
+ported; the reference's other engines are known names that raise
+``NotImplementedError`` naming their ROADMAP item, and their knobs
+(``chunk``, ``devices``, ``axis``) come with them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import warnings
 
 __all__ = ["EngineSpec", "get", "resolve", "run"]
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineSpec:
-    """One engine choice plus its knobs, as a single hashable value
-    (the reference's fields).  ``use_pallas`` routes phase 2 of the
-    monolithic engine through the fused CUDA kernels."""
+    """One engine choice plus its knobs, as a single hashable value.
+    ``use_pallas`` (the reference's name) routes phase 2 of the
+    monolithic engine through the fused CUDA kernels; it is the only
+    switch for them."""
 
     name: str = "monolithic"
-    chunk: int = 0          # stream: coords per chunk (0 = engine default)
-    devices: int = 0        # sharded: mesh size (0 = all visible devices)
-    axis: str = "d"         # sharded: coordinate mesh axis name
     use_pallas: bool = False
 
 
-def _run_monolithic(spec, u_stack, cfg, key, a):
+def _run_monolithic(u_stack, cfg, key, a):
     from .fediac import aggregate_stack
-    return aggregate_stack(u_stack, _with_pallas(cfg, spec), key, a=a)
+    return aggregate_stack(u_stack, cfg, key, a=a)
 
 
 _RUNNERS = {"monolithic": _run_monolithic}
@@ -62,41 +60,13 @@ def get(engine: "str | EngineSpec") -> EngineSpec:
                     f"got {type(engine).__name__}")
 
 
-_warned: set[str] = set()
-
-
-def _warn_once(field: str, replacement: str) -> None:
-    if field in _warned:
-        return
-    _warned.add(field)
-    warnings.warn(f"{field} is deprecated; {replacement}",
-                  DeprecationWarning, stacklevel=4)
-
-
 def resolve(cfg) -> EngineSpec:
-    """The engine spec a config selects, the legacy ``use_pallas`` field
-    folded in (warning once per process)."""
-    spec = get(getattr(cfg, "engine", "monolithic"))
-    if int(getattr(cfg, "stream_chunk", 0) or 0):
-        raise NotImplementedError("FediACConfig.stream_chunk selects the "
-                                  "stream engine, which is not ported yet "
-                                  "(ROADMAP A7: stream engine)")
-    if getattr(cfg, "use_pallas", False) and not spec.use_pallas:
-        _warn_once("FediACConfig.use_pallas as an engine selector",
-                   "pass engine=EngineSpec(name=..., use_pallas=True)")
-        spec = dataclasses.replace(spec, use_pallas=True)
-    return spec
+    """The engine spec a config selects."""
+    return get(cfg.engine)
 
 
-def _with_pallas(cfg, spec: EngineSpec):
-    """A cfg whose ``use_pallas`` field matches the spec."""
-    if getattr(cfg, "use_pallas", False) == spec.use_pallas:
-        return cfg
-    return dataclasses.replace(cfg, use_pallas=spec.use_pallas)
-
-
-def run(spec: EngineSpec, u_stack, cfg, key, *, a=None):
-    """Run one stacked round on ``spec``'s engine; the ``aggregate_stack``
-    return contract ``(delta, residuals, counts, TrafficStats)``."""
-    _check_name(spec.name)
-    return _RUNNERS[spec.name](spec, u_stack, cfg, key, a)
+def run(u_stack, cfg, key, *, a=None):
+    """Run one stacked round on the engine ``cfg`` selects; the
+    ``aggregate_stack`` return contract ``(delta, residuals, counts,
+    TrafficStats)``."""
+    return _RUNNERS[resolve(cfg).name](u_stack, cfg, key, a)

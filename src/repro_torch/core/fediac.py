@@ -7,13 +7,14 @@ simulator's aggregation path and is bitwise equal to the reference's
 
 The N clients are a batch dimension throughout — the reference's
 per-client ``vmap`` — so each step of the round is one pass over the
-stack, and the fused phase 2 (``use_pallas``) is one kernel launch for all
-clients (:mod:`repro_torch.kernels`).
+stack, and the fused phase 2 (``EngineSpec(use_pallas=True)``) is one
+kernel launch for all clients (:mod:`repro_torch.kernels`).
 
 Ported: ``vote_mode="topk"``, ``compact_mode="topk"``, any ``vote_chunk``,
-``use_pallas`` on and off, ``robust_agg="sum"``.  The threshold and block
-modes, the robust closes and the in-network allreduce raise
-``NotImplementedError`` naming their ROADMAP item.
+the fused kernels on and off, ``robust_agg="sum"``.  The threshold and
+block modes, the robust closes and the in-network allreduce raise
+``NotImplementedError`` naming their ROADMAP item; their knobs come with
+them.
 """
 
 from __future__ import annotations
@@ -25,10 +26,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
-from repro_torch.validate import (check_at_least, check_choice, check_interval,
-                                  require)
+from repro_torch.validate import check_at_least, check_choice, check_interval
 
-from . import compaction, prng, robust_agg, voting
+from . import compaction, engines, prng, robust_agg, voting
 from .quantize import dequantize, quantize, scale_factor
 from .round_plan import RoundPlan, build_round_plan
 
@@ -40,8 +40,10 @@ __all__ = ["FediACConfig", "TrafficStats", "aggregate_stack",
 
 @dataclass(frozen=True)
 class FediACConfig:
-    """Hyper-parameters of FediAC (paper Sec. IV / V-A3); the reference's
-    fields, so a configuration carries over unchanged."""
+    """Hyper-parameters of FediAC (paper Sec. IV / V-A3), named as in the
+    reference.  Only the fields the ported modes read are here; the
+    engine's :class:`~.engines.EngineSpec` is the one switch for the fused
+    CUDA kernels."""
 
     k_frac: float = 0.05          # vote budget k = k_frac * d   (paper: 5% d)
     a: int | None = None          # vote threshold; None -> ceil(a_frac * N)
@@ -50,22 +52,11 @@ class FediACConfig:
     capacity_frac: float = 0.05   # compact buffer C = capacity_frac * d
     vote_chunk: int = 1           # g coords per vote bit (1 = paper-faithful)
     vote_dtype: str = "uint8"     # wire dtype of the phase-1 sum
-    vote_wire: str = "count"      # count | packed (allreduce wire only)
-    use_pallas: bool = False      # route phase 2 through the fused kernels
-                                  # (the name is the reference's; here they
-                                  # are CUDA kernels).  Prefer
-                                  # EngineSpec(use_pallas=True).
     vote_mode: str = "topk"       # topk (paper-faithful) | threshold
     compact_mode: str = "topk"    # topk (global top-C)   | block
-    block_size: int = 4096        # block compaction granule
-    alpha: float = -1.0           # Def.1 power-law exponent (server-fitted)
-    work_dtype: str = "float32"   # dtype of the allreduce working tensors
-    granularity: str = "model"    # model | tensor (allreduce path)
-    engine: "str | EngineSpec" = "monolithic"  # registered name or EngineSpec
-    stream_chunk: int = 0         # DEPRECATED: use EngineSpec(chunk=...)
+    engine: "str | engines.EngineSpec" = "monolithic"  # name or EngineSpec
     consensus_floor: int = 0      # dense-mask fallback floor (0 = off)
     robust_agg: str = "sum"       # sum | trim | median
-    trim_frac: float = 0.0
 
     def __post_init__(self):
         check_interval("k_frac", self.k_frac, 0.0, 1.0, lo_open=True)
@@ -76,18 +67,17 @@ class FediACConfig:
             check_at_least("a", self.a, 1)
         check_at_least("bits", self.bits, 1)
         check_at_least("vote_chunk", self.vote_chunk, 1)
-        check_at_least("block_size", self.block_size, 1)
-        check_at_least("stream_chunk", self.stream_chunk, 0)
         check_at_least("consensus_floor", self.consensus_floor, 0)
-        require(math.isfinite(self.alpha), "alpha", "finite", self.alpha)
         check_choice("vote_mode", self.vote_mode, ("topk", "threshold"))
         check_choice("compact_mode", self.compact_mode, ("topk", "block"))
-        check_choice("vote_wire", self.vote_wire, ("count", "packed"))
-        check_choice("granularity", self.granularity, ("model", "tensor"))
         check_choice("robust_agg", self.robust_agg, robust_agg.ROBUST_AGG_MODES)
-        check_interval("trim_frac", self.trim_frac, 0.0, 0.5, hi_open=True)
-        from . import engines
         engines.get(self.engine)   # registered name or EngineSpec
+
+    @property
+    def kernels(self) -> bool:
+        """Whether phase 2 runs through the fused CUDA kernels (the
+        engine spec's ``use_pallas``)."""
+        return engines.resolve(self).use_pallas
 
     def k(self, d: int) -> int:
         return max(1, int(round(self.k_frac * d)))
@@ -160,7 +150,7 @@ def client_compress(u_stack: torch.Tensor, cfg: FediACConfig, f: torch.Tensor,
     Returns ``(q_bufs int32[N, C·g], residuals)``: the compacted quantized
     uploads and the new error-feedback state, which is u with each client's
     own de-quantized upload subtracted at the consensus coordinates.  With
-    ``use_pallas`` the quantization is the ``stoch_quant`` kernel.
+    the fused kernels on, the quantization is the ``stoch_quant`` kernel.
     """
     idx, keep = plan.idx, plan.keep
     n, d = u_stack.shape
@@ -173,7 +163,7 @@ def client_compress(u_stack: torch.Tensor, cfg: FediACConfig, f: torch.Tensor,
     else:
         gathered = compaction.compact(u_stack, idx, keep).to(torch.float32)
     uniforms = prng.uniform(keys, (gathered.shape[-1],))
-    if cfg.use_pallas:
+    if cfg.kernels:
         q_bufs = kops.quantize_flat(gathered, uniforms, f)
     else:
         q_bufs = quantize(gathered, f, uniforms)
@@ -210,13 +200,13 @@ def _client_compress_fused(u_stack: torch.Tensor, cfg: FediACConfig,
 
 def phase2_compress(cfg: FediACConfig):
     """Pick the phase-2 implementation for this config."""
-    if cfg.use_pallas and cfg.vote_chunk == 1:
+    if plan_wants_dense_mask(cfg):
         return _client_compress_fused
     return client_compress
 
 
 def plan_wants_dense_mask(cfg: FediACConfig) -> bool:
-    return cfg.use_pallas and cfg.vote_chunk == 1
+    return cfg.kernels and cfg.vote_chunk == 1
 
 
 def scatter_sum(summed_q: torch.Tensor, idx: torch.Tensor, keep: torch.Tensor,
@@ -285,8 +275,7 @@ def aggregate_from_counts(u_stack: torch.Tensor, cfg: FediACConfig,
 def aggregate_round(u_stack: torch.Tensor, cfg: FediACConfig, key: torch.Tensor,
                     *, a=None):
     """Run one stacked round on the engine ``cfg.engine`` selects."""
-    from . import engines
-    return engines.run(engines.resolve(cfg), u_stack, cfg, key, a=a)
+    return engines.run(u_stack, cfg, key, a=a)
 
 
 def fediac_allreduce(*args, **kwargs):

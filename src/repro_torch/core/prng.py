@@ -26,6 +26,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+
 from . import xla_math
 
 __all__ = ["PRNGKey", "split", "fold_in", "random_bits", "uniform", "gumbel",
@@ -55,8 +57,10 @@ def threefry2x32(k1, k2, x1, x2):
 
 
 def PRNGKey(seed: int, device=None) -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)`` with 64-bit mode off: ``[0, seed mod 2^32]``."""
-    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64, device=device)
+    """``jax.random.PRNGKey(seed)`` with 64-bit mode off: ``[0, seed mod 2^32]``,
+    on ``device`` (the card unless told otherwise)."""
+    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64,
+                        device=resolve_device(device))
 
 
 def _key_halves(key: torch.Tensor, ndim: int):

@@ -140,10 +140,11 @@ def accuracy(model: MLP, x: torch.Tensor, y: torch.Tensor) -> float:
 
 @dataclass
 class FLConfig:
-    """One federated-learning experiment (the reference's fields).
+    """One federated-learning experiment, named as in the reference.
 
     Ported: ``transport="memory"`` with the FediAC aggregator.  A packet
-    transport, a checkpoint path or a resume request raises.
+    transport, a checkpoint path or a resume request raises; their other
+    knobs come with them.
     """
 
     n_clients: int = 20
@@ -154,16 +155,12 @@ class FLConfig:
     lr_tau: float = 20.0           # lr_t = lr0 / (1 + sqrt(t)/tau)   (paper V-A1)
     aggregator: str = "fediac"
     agg_kwargs: dict = field(default_factory=dict)
-    use_pallas: bool | None = None  # DEPRECATED: use engine=EngineSpec(
-                                    # use_pallas=True)
     engine: object | None = None    # override FediACConfig.engine
     switch: SwitchProfile = field(default_factory=SwitchProfile.high)
     local_train_s: float = 0.1     # paper: 0.1 (FEMNIST) .. 3 (CIFAR-100)
     transport: str = "memory"      # "memory" | "packet"
-    net: object | None = None      # packet transport config
     seed: int = 0
     ckpt_path: str | None = None   # round-granular run-state checkpoint file
-    ckpt_every: int = 1
     resume: bool = False
 
     def __post_init__(self):
@@ -175,7 +172,6 @@ class FLConfig:
         check_positive_finite("lr_tau", self.lr_tau)
         check_finite_at_least("local_train_s", self.local_train_s, 0.0)
         check_choice("transport", self.transport, ("memory", "packet"))
-        check_at_least("ckpt_every", self.ckpt_every, 1)
         if self.engine is not None:
             engines.get(self.engine)   # registered name or EngineSpec
 
@@ -306,18 +302,9 @@ def run_federated(clients, test, flcfg: FLConfig, *, hidden=(128, 64),
                          f"{flcfg.n_clients}")
 
     agg_kwargs = dict(flcfg.agg_kwargs)
-    if flcfg.aggregator == "fediac":
-        overrides = {}
-        if flcfg.use_pallas is not None:
-            engines._warn_once(
-                "FLConfig.use_pallas",
-                "pass FLConfig(engine=EngineSpec(name=..., use_pallas=True))")
-            overrides["use_pallas"] = flcfg.use_pallas
-        if flcfg.engine is not None:
-            overrides["engine"] = engines.get(flcfg.engine)
-        if overrides:
-            base_cfg = agg_kwargs.get("cfg", FediACConfig())
-            agg_kwargs["cfg"] = replace(base_cfg, **overrides)
+    if flcfg.aggregator == "fediac" and flcfg.engine is not None:
+        base_cfg = agg_kwargs.get("cfg", FediACConfig())
+        agg_kwargs["cfg"] = replace(base_cfg, engine=engines.get(flcfg.engine))
     rates = client_rates(n, flcfg.seed)
     transport = make_transport(flcfg.aggregator, transport=flcfg.transport,
                                **agg_kwargs)

@@ -58,7 +58,7 @@ def test_round_on_card_equals_cpu(cuda_device, vote_chunk):
                        engine=EngineSpec(use_pallas=True))
     on_card = aggregate_round(u.to(cuda_device), cfg,
                               prng.PRNGKey(4, device=cuda_device))
-    on_cpu = aggregate_round(u, cfg, prng.PRNGKey(4))
+    on_cpu = aggregate_round(u, cfg, prng.PRNGKey(4, device="cpu"))
     for a, b in zip(on_card[:3], on_cpu[:3]):
         assert _same(a, b)
 

@@ -19,7 +19,7 @@ def _bits(a):
 def test_prngkey_matches():
     for seed in SEEDS + [-1, 2**40 + 3]:
         np.testing.assert_array_equal(
-            prng.PRNGKey(seed).numpy(),
+            prng.PRNGKey(seed, device="cpu").numpy(),
             np.asarray(jax.random.PRNGKey(seed)).astype(np.int64))
 
 
@@ -43,7 +43,7 @@ def test_fold_in_bitwise(seed, data):
 
 def test_fold_in_rejects_out_of_range():
     with pytest.raises(OverflowError):
-        prng.fold_in(prng.PRNGKey(0), -1)
+        prng.fold_in(prng.PRNGKey(0, device="cpu"), -1)
 
 
 @pytest.mark.parametrize("seed", SEEDS)

@@ -89,7 +89,8 @@ def test_aggregate_stack_bitwise(vote_chunk, use_pallas):
     u = _updates(n, d, seed=vote_chunk)
     key = jax.random.PRNGKey(11)
     jc = jfediac.FediACConfig(vote_chunk=vote_chunk, use_pallas=use_pallas)
-    tc = fediac.FediACConfig(vote_chunk=vote_chunk, use_pallas=use_pallas)
+    tc = fediac.FediACConfig(vote_chunk=vote_chunk,
+                             engine=engines.EngineSpec(use_pallas=use_pallas))
     dj, rj, cj, tj = jfediac.aggregate_stack(jnp.asarray(u), jc, key)
     dt, rt, ct, tt = fediac.aggregate_stack(torch.from_numpy(u), tc,
                                             key_to_torch(key))
@@ -106,17 +107,19 @@ def test_engine_spec_routes_the_fused_path():
     u = torch.from_numpy(_updates(n, d, seed=5))
     key = torch.tensor([0, 3])
     spec_cfg = fediac.FediACConfig(engine=engines.EngineSpec(use_pallas=True))
-    field_cfg = fediac.FediACConfig(use_pallas=True)
+    assert spec_cfg.kernels and not fediac.FediACConfig().kernels
     a = fediac.aggregate_round(u, spec_cfg, key)
-    b = fediac.aggregate_stack(u, field_cfg, key)
+    b = fediac.aggregate_stack(u, spec_cfg, key)
     c = fediac.aggregate_stack(u, fediac.FediACConfig(), key)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert not torch.equal(a[1], c[1])   # a different random stream
+    with pytest.raises(TypeError):       # the spec is the only switch
+        fediac.FediACConfig(use_pallas=True)
 
 
 def test_counts_and_residual_conservation():
     n, d = 8, 20_000
-    cfg = fediac.FediACConfig(use_pallas=True)
+    cfg = fediac.FediACConfig(engine=engines.EngineSpec(use_pallas=True))
     u = torch.from_numpy(_updates(n, d, seed=9))
     delta, res, counts, _ = fediac.aggregate_stack(u, cfg, torch.tensor([0, 1]))
     assert int(counts.sum()) == n * cfg.k(d)
@@ -127,7 +130,7 @@ def test_counts_and_residual_conservation():
 
 @pytest.mark.parametrize("override", [
     dict(vote_mode="threshold"), dict(compact_mode="block"),
-    dict(robust_agg="trim", trim_frac=0.1), dict(robust_agg="median")])
+    dict(robust_agg="trim"), dict(robust_agg="median")])
 def test_unported_modes_raise(override):
     cfg = fediac.FediACConfig(**override)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

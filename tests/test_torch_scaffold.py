@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.core import prng
 from repro_torch.data import classification, partition_iid
 from repro_torch.training import fl_loop
 
@@ -78,6 +79,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                               fl_loop.FLConfig(n_clients=2, rounds=1))
     with pytest.raises(RuntimeError, match="CUDA"):
         fl_loop.params_from_jax([{"w": np.zeros((2, 2)), "b": np.zeros(2)}])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prng.PRNGKey(0)
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
 
 
