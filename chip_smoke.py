@@ -8,9 +8,10 @@ Run from the repository root, with no arguments:
 Phases, each of which raises (and exits non-zero) on failure:
 
 1. card: name and power limit, as ``nvidia-smi`` reports them;
-2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (``quant.cu`` and ``votes.cu``, one ``nvcc`` each, in parallel);
 3. kernel parity: each kernel against its plain-torch version on the card,
-   bitwise, at the main path's shapes and at ragged / edge cases;
+   bitwise, at the main paths' shapes and at ragged / edge cases;
 4. main path: two FediAC rounds at d = 1,000,000 and N = 32 (the largest
    monolithic cell of ``benchmarks/aggregation_round.py``), vote_chunk 1
    and 4, with the fused kernels on, then 3 rounds of the FL loop at its
@@ -20,8 +21,16 @@ Phases, each of which raises (and exits non-zero) on failure:
    (plain versions) from the card's vote counts, bitwise, and the vote
    counts of a whole CPU round against the card's; the FL loop against
    its CPU run;
-6. timing: each kernel, its plain version and its memory bound at the main
-   path's shapes, and whole rounds.  A kernel's ``ms`` is CUDA-event time
+6. allreduce path: 8 ranks on the one card over gloo (spawned once), each
+   one client of ``fediac_allreduce`` at d = 12,500,992 (one device's
+   slice of the reference's d ~ 1e8 sort-free scale cell) on the packed
+   wire, threshold/block (``vote_pack`` + ``popcount``) and topk/topk
+   (``pack`` + ``popcount`` + ``gather_quant``), two rounds each carrying
+   residuals, with each rank's launch counts zeroed just before and read
+   just after; gates on every rank; then both configs at d = 1,000,000 on
+   the card and on the CPU, bitwise; then round and collective times;
+7. timing: each kernel, its plain version and its memory bound at the main
+   paths' shapes, and whole rounds.  A kernel's ``ms`` is CUDA-event time
    per wrapper call (it includes the host's launch work whenever that is
    slower than the kernel); ``device_ms`` is the kernel alone, from
    ``torch.profiler``.
@@ -36,6 +45,7 @@ from __future__ import annotations
 
 import json
 import math
+import socket
 import subprocess
 import sys
 import time
@@ -45,7 +55,15 @@ ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 N_CLIENTS, D = 32, 1_000_000
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
-FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores;
+                                 # also the bound used for integer ALU work
+AR_RANKS = 8                     # clients of the allreduce, one rank each
+AR_D = 8 * 4096 * 3052 // 8      # 12,500,992: SHARD_D / SHARD_DEVICES of
+                                 # benchmarks/aggregation_round.py
+AR_CHECK_D = 1_000_000           # card vs CPU allreduce width
+AR_ROUNDS = 2
+AR_TIME_ITERS = 3
+WIRE_D = AR_D
 
 
 def log(msg: str) -> None:
@@ -120,9 +138,44 @@ def device_profile(fn, iters: int = 3) -> list:
 
 def kernel_device_ms(fn, kernel: str, iters: int = 20):
     """Device ms of one launch of ``kernel`` inside ``fn()``, or None when
-    the profiler reports no device time for it."""
-    rows = [r for r in device_profile(fn, iters) if kernel in r[0]]
+    the profiler reports no device time for it (then the kernels it did
+    see are logged)."""
+    profile_rows = device_profile(fn, iters)
+    rows = [r for r in profile_rows if kernel in r[0]]
+    if not rows:
+        log(f"[profiler] no {kernel!r} among {len(profile_rows)} device "
+            f"rows: {[r[0][:120] for r in profile_rows[:5]]}")
     return rows[0][1] / rows[0][2] if rows else None
+
+
+def graph_ms(fn, launches: int = 100, replays: int = 5):
+    """Device ms per call of ``fn()`` replayed from a CUDA graph of
+    ``launches`` back-to-back calls: the host's launch work drops out,
+    which a short kernel's per-call time cannot show.  None (logged) when
+    the capture is refused."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(launches):
+                fn()
+    except RuntimeError as e:
+        log(f"[graph] capture refused: {e}")
+        return None
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * launches)
 
 
 def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
@@ -193,6 +246,70 @@ def phase_parity() -> dict:
     return {k: max(v) for k, v in errs.items()}
 
 
+def _wire_inputs(d, seed):
+    """A 5% 0/1 mask and |normal|**3 scores with NaNs, on the card."""
+    import torch
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    mask = (torch.rand(d, device=DEV, generator=gen) < 0.05).to(torch.uint8)
+    scores = torch.randn(d, device=DEV, generator=gen).abs() ** 3
+    scores[3::997] = math.nan
+    return mask, scores
+
+
+def _words(n, d, seed):
+    """Random int32 packed words of n clients for a d-vector, on the card."""
+    import torch
+    from repro_torch.kernels.ref import LANES, wire_groups
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randint(-2**31, 2**31, (n, wire_groups(d), LANES),
+                         dtype=torch.int32, device=DEV, generator=gen)
+
+
+def phase_wire_parity() -> dict:
+    """The packed wire's kernels vs their plain versions on the card,
+    bitwise: at d = WIRE_D, ragged d, tau in {0, the 5% quantile, inf,
+    -inf} with NaN scores, and popcount over N in {1, 8, 64} clients."""
+    import torch
+    from repro_torch.kernels import bitpack, vote_pack, vote_popcount
+    errs = {k: [] for k in ("vote_pack", "pack", "unpack", "popcount_accum")}
+    n_cases = 0
+    for d in (WIRE_D, 1, 70_001, 300_000):
+        mask, scores = _wire_inputs(d, seed=d)
+        words = bitpack.pack(mask)
+        plain = bitpack.pack_plain(mask)
+        torch.cuda.synchronize()
+        check(same_bits(words, plain), f"pack != plain at d={d}")
+        errs["pack"].append(max_abs_err([(words, plain)]))
+        back = bitpack.unpack(words, d)
+        torch.cuda.synchronize()
+        check(same_bits(back, bitpack.unpack_plain(words, d))
+              and same_bits(back, mask), f"unpack != plain at d={d}")
+        errs["unpack"].append(max_abs_err([(back, mask)]))
+        finite = scores[torch.isfinite(scores)]
+        q95 = torch.quantile(finite[:1 << 24].float(), 0.95) if d > 1 \
+            else finite.max()
+        for tau in (torch.zeros((), device=DEV), q95.reshape(()),
+                    torch.tensor(math.inf, device=DEV),
+                    torch.tensor(-math.inf, device=DEV)):
+            got = vote_pack.vote_pack(scores, tau)
+            want = vote_pack.vote_pack_plain(scores, tau)
+            torch.cuda.synchronize()
+            check(same_bits(got, want),
+                  f"vote_pack != plain at d={d}, tau={float(tau)}")
+            errs["vote_pack"].append(max_abs_err([(got, want)]))
+        for n in ((1, 8, 64) if d in (WIRE_D, 70_001) else (8,)):
+            stack = _words(n, d, seed=n + d)
+            got = vote_popcount.popcount_accum(stack, d)
+            want = vote_popcount.popcount_accum_plain(stack, d)
+            torch.cuda.synchronize()
+            check(same_bits(got, want), f"popcount != plain at N={n}, d={d}")
+            errs["popcount_accum"].append(max_abs_err([(got, want)]))
+            del stack
+        n_cases += 1
+    log(f"[wire parity] {n_cases} widths bitwise for the four wire kernels")
+    return {k: max(v) for k, v in errs.items()}
+
+
 def _fl_setup():
     from repro_torch.core.engines import EngineSpec
     from repro_torch.data import classification, partition_dirichlet
@@ -218,8 +335,9 @@ def phase_main_path(u_stack, key) -> dict:
     from repro_torch.kernels.stoch_quant import stoch_quant
     from repro_torch.training.fl_loop import run_federated
     clients, test, flcfg = _fl_setup()
-    gather_quant.launches = 0
-    stoch_quant.launches = 0
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
     rounds = {}
     for g in (1, 4):
         out = aggregate_round(u_stack, _round_cfg(g), key)
@@ -227,8 +345,7 @@ def phase_main_path(u_stack, key) -> dict:
         rounds[g] = out
     after_rounds = (gather_quant.launches, stoch_quant.launches)
     hist = run_federated(clients, test, flcfg, device=DEV)
-    launches = {"gather_quant": gather_quant.launches,
-                "stoch_quant": stoch_quant.launches}
+    launches = {k: c.launches for k, c in counters.items()}
     log(f"[main path] launches {launches} (after the two rounds: "
         f"{after_rounds}); FL acc {hist.acc} loss {hist.loss}")
     check(after_rounds == (1, 1), f"round launches {after_rounds} != (1, 1)")
@@ -289,6 +406,269 @@ def phase_checks(u_stack, key, main) -> dict:
         f"{acc_gap:.3g}, loss gap {loss_gap:.3g}")
     report.update(fl_acc=hist.acc, fl_acc_gap=acc_gap, fl_loss_gap=loss_gap)
     return report
+
+
+# ---------------------------------------------------------------------------
+# The allreduce path: AR_RANKS clients, one rank each, on the one card
+# ---------------------------------------------------------------------------
+
+#: the port's kernels of the allreduce path, by config, and their wrappers
+AR_PATH_KERNELS = {"A": ("vote_pack", "popcount_accum"),
+                   "B": ("pack", "popcount_accum", "gather_quant")}
+
+
+def _ar_configs():
+    from repro_torch.core.engines import EngineSpec
+    from repro_torch.core.fediac import FediACConfig
+    spec = EngineSpec(use_pallas=True)
+    return {"A": FediACConfig(vote_mode="threshold", compact_mode="block",
+                              vote_wire="packed", engine=spec),
+            "B": FediACConfig(vote_wire="packed", engine=spec)}
+
+
+def _counters() -> dict:
+    from repro_torch.kernels import (bitpack, gather_quant, stoch_quant,
+                                     vote_pack, vote_popcount)
+    return {"gather_quant": gather_quant.gather_quant,
+            "stoch_quant": stoch_quant.stoch_quant,
+            "vote_pack": vote_pack.vote_pack, "pack": bitpack.pack,
+            "unpack": bitpack.unpack,
+            "popcount_accum": vote_popcount.popcount_accum}
+
+
+def _rank_update(rank: int, d: int):
+    """This rank's row of a seeded [AR_RANKS, d] normal**3 update."""
+    import torch
+    gen = torch.Generator(device=DEV).manual_seed(d)
+    return torch.randn(AR_RANKS, d, device=DEV, generator=gen)[rank] ** 3
+
+
+def _ar_round_gates(cfg, u, res, out, n, group_max):
+    """Gates of one allreduce round on this rank; returns the measured
+    numbers (the parent checks them across ranks)."""
+    import torch
+    import torch.distributed as dist
+    mean, new_res, counts = out
+    d = u.shape[0]
+    rank0 = mean.clone()
+    dist.broadcast(rank0, 0)
+    left = (u + res - new_res).to(torch.float32)
+    dist.all_reduce(left)
+    err = float((left / n - mean).abs().max())
+    k = cfg.k(d)
+    return {"finite": bool(torch.isfinite(mean).all()
+                           and torch.isfinite(new_res).all()),
+            "shapes": [list(mean.shape), list(new_res.shape),
+                       list(counts.shape)],
+            "same_mean_as_rank0": same_bits(mean, rank0),
+            "conservation_err": err,
+            # each rank's u + res - new_res carries its own rounding of
+            # q/f at up to |u + res|; eight ulps of the largest covers it
+            "conservation_tol": 8 * 2.0**-23 * group_max,
+            "counts_sum": int(counts.sum()), "n_k": n * k}
+
+
+def allreduce_rank(rank: int, world: int) -> dict:
+    """One client of the allreduce path (runs in a spawned rank)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import collectives, fediac, prng
+    torch.cuda.set_device(0)
+    torch.cuda.reset_peak_memory_stats()
+    counters = _counters()
+    cfgs = _ar_configs()
+    u = _rank_update(rank, AR_D)
+    key0 = prng.PRNGKey(0, device=DEV)
+    report = {"rank": rank, "launches": {}, "round_deltas": {}, "gates": {}}
+
+    # -- main path: AR_ROUNDS rounds per config, residuals carried, the
+    # launch counts zeroed just before and read just after
+    for name, cfg in cfgs.items():
+        for c in counters.values():
+            c.launches = 0
+        res = torch.zeros_like(u)
+        deltas, gates = [], []
+        for t in range(AR_ROUNDS):
+            before = {k: c.launches for k, c in counters.items()}
+            out = fediac.fediac_allreduce(u, res, prng.fold_in(key0, t), cfg,
+                                          return_counts=True)
+            torch.cuda.synchronize()
+            deltas.append({k: c.launches - before[k]
+                           for k, c in counters.items()})
+            gmax = collectives.pmax_((u + res).abs().max())
+            gates.append(_ar_round_gates(cfg, u, res, out, world,
+                                         float(gmax)))
+            res = out[1]
+        report["launches"][name] = {k: c.launches for k, c in counters.items()}
+        report["round_deltas"][name] = deltas
+        report["gates"][name] = gates
+        del res, out
+    report["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    # -- card vs CPU at AR_CHECK_D, both configs, two rounds each
+    uc = _rank_update(rank, AR_CHECK_D)
+    cpu = {}
+    for name, cfg in cfgs.items():
+        rg, rc = torch.zeros_like(uc), torch.zeros_like(uc).cpu()
+        rounds = []
+        for t in range(AR_ROUNDS):
+            key = prng.fold_in(key0, t)
+            mg, rg2, cg = fediac.fediac_allreduce(uc, rg, key, cfg,
+                                                  return_counts=True)
+            mc, rc2, cc = fediac.fediac_allreduce(uc.cpu(), rc, key.cpu(), cfg,
+                                                  return_counts=True)
+            rounds.append({"same_mean": same_bits(mg, mc),
+                           "same_res": same_bits(rg2, rc2),
+                           "counts_differ": int((cg.cpu() != cc).sum())})
+            rg, rc = rg2, rc2
+        cpu[name] = rounds
+    report["card_vs_cpu"] = cpu
+
+    # -- timing: each round as the slowest rank between two barriers, and
+    # the wire's collectives on their own
+    times = {}
+    zero = torch.zeros_like(u)
+    for name, cfg in cfgs.items():
+        times[name] = []
+        for t in range(AR_TIME_ITERS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fediac.fediac_allreduce(u, zero, prng.fold_in(key0, t), cfg)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            dist.barrier()
+    from repro_torch.kernels.ref import LANES, wire_groups
+    words = torch.zeros(wire_groups(AR_D) * LANES, dtype=torch.int32,
+                        device=DEV)
+    buf = torch.zeros(cfgs["B"].capacity(AR_D), dtype=torch.int32, device=DEV)
+    scalar = torch.zeros((), device=DEV)
+    for what, fn in (("all_gather_words", lambda: collectives.all_gather(words)),
+                     ("psum_phase2", lambda: collectives.psum_(buf)),
+                     ("pmax_scalar", lambda: collectives.pmax_(scalar))):
+        times[what] = []
+        for _ in range(AR_TIME_ITERS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[what].append((time.perf_counter() - t0) * 1e3)
+    report["times_ms"] = times
+    return report
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_allreduce() -> dict:
+    """Spawn the AR_RANKS ranks once, run the allreduce path in them, and
+    hold every rank to the gates."""
+    from repro_torch import testing
+    t0 = time.perf_counter()
+    reports = testing.run_ranks(allreduce_rank, AR_RANKS,
+                                f"tcp://localhost:{_free_port()}",
+                                timeout=900)
+    wall = time.perf_counter() - t0
+    cfgs = _ar_configs()
+    launches = {k: 0 for k in _counters()}
+    for rep in reports:
+        r = rep["rank"]
+        for name, cfg in cfgs.items():
+            on_path = AR_PATH_KERNELS[name]
+            for t, delta in enumerate(rep["round_deltas"][name]):
+                want = {k: (1 if k in on_path else 0) for k in delta}
+                check(delta == want, f"rank {r} config {name} round {t}: "
+                      f"launches rose by {delta}, not {want}")
+            for k, v in rep["launches"][name].items():
+                launches[k] += v
+            for t, g in enumerate(rep["gates"][name]):
+                where = f"rank {r} config {name} round {t}"
+                check(g["finite"], f"{where}: non-finite mean or residual")
+                check(g["shapes"] == [[AR_D], [AR_D], [AR_D]],
+                      f"{where}: shapes {g['shapes']}")
+                check(g["same_mean_as_rank0"], f"{where}: mean differs from "
+                      "rank 0's")
+                check(g["conservation_err"] <= g["conservation_tol"],
+                      f"{where}: mean vs averaged u + res - new_res differ by "
+                      f"{g['conservation_err']} > {g['conservation_tol']}")
+                if name == "B":
+                    check(g["counts_sum"] == g["n_k"], f"{where}: counts sum "
+                          f"{g['counts_sum']} != N*k {g['n_k']}")
+            for t, c in enumerate(rep["card_vs_cpu"][name]):
+                where = f"rank {r} config {name} round {t} at d={AR_CHECK_D}"
+                check(c["same_mean"] and c["same_res"],
+                      f"{where}: card and CPU means/residuals differ")
+                check(c["counts_differ"] <= 1e-4 * AR_CHECK_D,
+                      f"{where}: {c['counts_differ']} vote counts differ")
+    slowest = {what: [max(rep["times_ms"][what][i] for rep in reports)
+                      for i in range(AR_TIME_ITERS)]
+               for what in reports[0]["times_ms"]}
+    out = {"ranks": AR_RANKS, "d": AR_D, "wall_s": wall, "launches": launches,
+           "round_ms": {f"config_{k}": sorted(slowest[k])[AR_TIME_ITERS // 2]
+                        for k in cfgs},
+           "round_ms_all": {k: slowest[k] for k in cfgs},
+           "gloo_ms": {k: sorted(v)[AR_TIME_ITERS // 2]
+                       for k, v in slowest.items() if k not in cfgs},
+           "peak_mem_gib_per_rank": max(rep["peak_mem_gib"] for rep in reports),
+           "counts_differ_card_vs_cpu": max(
+               c["counts_differ"] for rep in reports
+               for rounds in rep["card_vs_cpu"].values() for c in rounds),
+           "conservation_err_max": max(
+               g["conservation_err"] for rep in reports
+               for gs in rep["gates"].values() for g in gs)}
+    log(f"[allreduce] {AR_RANKS} ranks, d={AR_D}: every gate held; "
+        f"launches {launches}; round ms {out['round_ms']}; peak "
+        f"{out['peak_mem_gib_per_rank']:.2f} GiB per rank; card == CPU "
+        f"bitwise at d={AR_CHECK_D} ({wall:.1f} s)")
+    # gloo stages CUDA tensors through host memory: these are times of the
+    # host path, not of the card
+    log(f"[gloo] slowest rank, median of {AR_TIME_ITERS}, ms: "
+        f"{out['gloo_ms']}")
+    return out
+
+
+def phase_wire_timing() -> dict:
+    """Each wire kernel, its plain version and its bound at the allreduce
+    path's shapes (d = AR_D, N = AR_RANKS)."""
+    import torch
+    from repro_torch.kernels import bitpack, vote_pack, vote_popcount
+    from repro_torch.kernels.ref import LANES, wire_groups
+    d, n = AR_D, AR_RANKS
+    w = wire_groups(d) * LANES
+    mask, scores = _wire_inputs(d, seed=5)
+    scores = torch.nan_to_num(scores)
+    tau = torch.quantile(scores[:1 << 24], 0.95).reshape(())
+    words = bitpack.pack(mask)
+    stack = _words(n, d, seed=6)
+    cases = {
+        # name: (kernel call, plain call, CUDA symbol, bytes, operations)
+        "vote_pack": (lambda: vote_pack.vote_pack(scores, tau),
+                      lambda: vote_pack.vote_pack_plain(scores, tau),
+                      "vote_pack_kernel", 4 * d + 4 * w + 4, 2 * d),
+        "pack": (lambda: bitpack.pack(mask), lambda: bitpack.pack_plain(mask),
+                 "pack_kernel", d + 4 * w, 2 * d),
+        "unpack": (lambda: bitpack.unpack(words, d),
+                   lambda: bitpack.unpack_plain(words, d),
+                   "unpack_kernel", 4 * w + d, 2 * d),
+        "popcount_accum": (
+            lambda: vote_popcount.popcount_accum(stack, d),
+            lambda: vote_popcount.popcount_accum_plain(stack, d),
+            "popcount_kernel", 4 * n * w + 4 * d, 64 * n * w),
+    }
+    out = {}
+    for name, (fn, plain, sym, nbytes, ops) in cases.items():
+        t_b, by_b = bound(nbytes, ops)
+        out[name] = dict(ms=cuda_ms(fn), device_ms=kernel_device_ms(fn, sym),
+                         graph_ms=graph_ms(fn),
+                         plain_ms=cuda_ms(plain, iters=5), bound_ms=t_b,
+                         bound_by=by_b, bytes=nbytes,
+                         shape=[n, d] if name == "popcount_accum" else [d])
+    log("[wire timing] " + json.dumps(out))
+    return out
 
 
 def phase_timing(u_stack, key) -> dict:
@@ -377,30 +757,48 @@ def main() -> int:
     card = phase_card()
     build_s = phase_build()
     parity_err = phase_parity()
+    parity_err.update(phase_wire_parity())
     gen = torch.Generator(device=DEV).manual_seed(0)
     scale = torch.empty(D, device=DEV).exponential_(generator=gen)
     u_stack = torch.randn(N_CLIENTS, D, device=DEV, generator=gen) * scale
     key = prng.PRNGKey(0, device=DEV)
     main_path = phase_main_path(u_stack, key)
     report = phase_checks(u_stack, key, main_path)
+    allreduce = phase_allreduce()
     timing = phase_timing(u_stack, key)
+    timing.update(phase_wire_timing())
 
-    src = "src/repro_torch/kernels/csrc/quant.cu"
+    quant_src = "src/repro_torch/kernels/csrc/quant.cu"
+    votes_src = "src/repro_torch/kernels/csrc/votes.cu"
     kernels = []
-    for name, replaces in (("gather_quant", "src/repro/kernels/gather_quant.py:37"),
-                           ("stoch_quant", "src/repro/kernels/stoch_quant.py:26")):
+    for name, src, replaces in (
+            ("gather_quant", quant_src, "src/repro/kernels/gather_quant.py:37"),
+            ("stoch_quant", quant_src, "src/repro/kernels/stoch_quant.py:26"),
+            ("vote_pack", votes_src, "src/repro/kernels/vote_pack.py:30"),
+            ("pack", votes_src, "src/repro/kernels/bitpack.py:29"),
+            ("unpack", votes_src, "src/repro/kernels/bitpack.py:36"),
+            ("popcount_accum", votes_src,
+             "src/repro/kernels/vote_popcount.py:34")):
         t = timing[name]
+        # launches on the paths this script drives: the stacked round and
+        # FL loop (counted in this process) plus the allreduce (summed over
+        # its ranks); unpack is on no path (no round calls it)
+        launches = (main_path["launches"].get(name, 0)
+                    + allreduce["launches"][name])
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces,
-                        "launches": main_path["launches"][name],
+                        "replaces": replaces, "launches": launches,
+                        "on_path": name != "unpack",
                         "max_abs_err": parity_err[name], "bitwise": True,
                         "ms": t["ms"], "device_ms": t["device_ms"],
+                        "graph_ms": t.get("graph_ms"),
                         "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": None, "shape": t["shape"]})
+    wire = ("vote_pack", "pack", "unpack", "popcount_accum")
     summary = {"build_s": build_s, "total_s": time.perf_counter() - t_start,
-               **report, **{k: v for k, v in timing.items()
-                            if k not in ("gather_quant", "stoch_quant")}}
+               **report, "allreduce": allreduce,
+               **{k: v for k, v in timing.items()
+                  if k not in ("gather_quant", "stoch_quant") + wire}}
     log("[summary] " + json.dumps(summary))
     print(json.dumps({"summary": summary}))
     print(json.dumps({"kernels": kernels}))

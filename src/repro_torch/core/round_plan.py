@@ -5,9 +5,9 @@ identical on every client (paper Sec. III-B).  :func:`build_round_plan`
 runs that selection exactly once per round, and every client's compress
 step takes the resulting :class:`RoundPlan`.
 
-Only the top-k plan is ported (``idx``/``keep`` plus the dense ``sel``
-mask of the fused kernel); the block plan and the streaming slot map are
-queued in ROADMAP.
+One plan object serves both compact modes: the top-k plan (``idx``/``keep``
+plus the dense ``sel`` mask of the fused kernel) and the block plan
+(``keep_dense``/``pos``).  The streaming slot map is queued in ROADMAP.
 """
 
 from __future__ import annotations
@@ -34,20 +34,27 @@ def consensus_floor_threshold(counts: torch.Tensor, a, floor: int) -> torch.Tens
 class RoundPlan(NamedTuple):
     """Consensus selection for one round, shared by all N clients.
 
-    ``idx`` int32[C] consensus coordinate order (count-desc, index-asc —
-    the stable top_k permutation), ``keep`` float32[C] in {0,1} flagging
-    entries whose count reached the vote threshold, and ``sel`` uint8[d]
-    the dense 0/1 selection mask, built on demand for the fused
-    gather-quant kernel.
+    topk mode: ``idx`` int32[C] consensus coordinate order (count-desc,
+    index-asc — the stable top_k permutation), ``keep`` float32[C] in
+    {0,1} flagging entries whose count reached the vote threshold.
+
+    block mode: ``keep_dense`` bool[d] selected coordinates, ``pos``
+    int32[d] slot-in-block for the cumsum compaction.
+
+    ``sel`` uint8[d] is the dense 0/1 selection mask, built on demand (for
+    the fused gather-quant kernel in topk mode; it is ``keep_dense`` in
+    block mode).
     """
 
-    idx: torch.Tensor
-    keep: torch.Tensor
+    idx: Optional[torch.Tensor] = None
+    keep: Optional[torch.Tensor] = None
+    keep_dense: Optional[torch.Tensor] = None
+    pos: Optional[torch.Tensor] = None
     sel: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
-        return self.idx.shape[-1]
+        return self.idx.shape[-1] if self.idx is not None else 0
 
 
 def build_round_plan(counts: torch.Tensor, cfg, n_clients: int, *, a=None,
@@ -57,14 +64,15 @@ def build_round_plan(counts: torch.Tensor, cfg, n_clients: int, *, a=None,
     ``counts`` int32[d//g] summed votes; ``cfg`` a FediACConfig; ``a``
     optionally overrides ``cfg.threshold(n_clients)``.
     """
-    if cfg.compact_mode != "topk":
-        raise NotImplementedError(
-            f"compact_mode={cfg.compact_mode!r} is not ported yet "
-            "(ROADMAP: threshold/block modes)")
     if a is None:
         a = cfg.threshold(n_clients)
     if getattr(cfg, "consensus_floor", 0) > 0:
         a = consensus_floor_threshold(counts, a, cfg.consensus_floor)
+    if cfg.compact_mode == "block":
+        keep_dense, pos = compaction.block_select(counts, a, cfg.block_size,
+                                                  cfg.capacity_frac)
+        sel = keep_dense.to(torch.uint8) if with_dense_mask else None
+        return RoundPlan(keep_dense=keep_dense, pos=pos, sel=sel)
     n_chunks = counts.shape[-1]
     idx, keep = compaction.consensus_indices(counts, a, cfg.capacity(n_chunks))
     sel = None

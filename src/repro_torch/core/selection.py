@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["topk_indices", "topk_counts_stack", "consensus_topk"]
+__all__ = ["topk_indices", "topk_mask", "topk_mask_stack", "topk_counts_stack",
+           "consensus_topk"]
 
 
 def topk_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
@@ -24,6 +25,22 @@ def topk_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
     index-ascending among ties (``lax.top_k``'s order)."""
     _, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     return idx[..., :k]
+
+
+def topk_mask_stack(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """uint8 ``[N, d]`` 0/1 masks of the k largest scores of each row.
+
+    scores: float32[N, d] (no NaN).  Row sums are k.
+    """
+    n, d = scores.shape
+    k = min(int(k), d)
+    mask = torch.zeros((n, d), dtype=torch.uint8, device=scores.device)
+    return mask.scatter_(1, topk_indices(scores, k), 1)
+
+
+def topk_mask(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Single-vector form of :func:`topk_mask_stack`: uint8 ``[d]``."""
+    return topk_mask_stack(scores[None, :], k)[0]
 
 
 def topk_counts_stack(scores: torch.Tensor, k: int) -> torch.Tensor:

@@ -5,6 +5,8 @@ The sources live in ``csrc/`` and are compiled at first use
 (:mod:`.build`); importing this package compiles nothing.
 """
 
-from . import build, gather_quant, ops, ref, stoch_quant
+from . import (bitpack, build, gather_quant, ops, ref, stoch_quant, vote_pack,
+               vote_popcount)
 
-__all__ = ["build", "gather_quant", "ops", "ref", "stoch_quant"]
+__all__ = ["bitpack", "build", "gather_quant", "ops", "ref", "stoch_quant",
+           "vote_pack", "vote_popcount"]

@@ -37,6 +37,16 @@ SOURCES = {
         ("repro_stoch_quant", [ctypes.c_void_p] * 4
          + [ctypes.c_int64, ctypes.c_void_p]),
     ),
+    "votes": (
+        ("repro_pack", [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                        ctypes.c_int64, ctypes.c_void_p]),
+        ("repro_vote_pack", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]),
+        ("repro_unpack", [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                          ctypes.c_int64, ctypes.c_void_p]),
+        ("repro_popcount", [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]),
+    ),
 }
 
 _lock = threading.Lock()

@@ -6,6 +6,10 @@ wire format and stays as it is: a flat 0/1 vector is viewed as rows of
 ``LANES`` (=1024) lanes, and bit ``r`` of word ``(g, l)`` holds
 ``mask[32 g + r, l]``.  Packed words are uint32 in the reference; torch
 holds them as their int32 bit-view.
+
+The bit functions walk the 32 bit positions one plane at a time, so their
+largest temporary is one word-sized plane: they also serve as the plain
+versions of the wire kernels at full width on the card.
 """
 
 from __future__ import annotations
@@ -13,43 +17,47 @@ from __future__ import annotations
 import torch
 
 LANES = 1024
-GROUP = 32  # rows packed per uint32 word
-
-_M32 = 0xFFFFFFFF
-
-
-def _as_int32_bits(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) -> int32 holding the same 32 bits."""
-    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+GROUP = 32        # rows packed per uint32 word
+PAD_ROWS = 256    # the reference pads the row count to a multiple of this
 
 
-def _shifts(device) -> torch.Tensor:
-    return torch.arange(GROUP, dtype=torch.int64, device=device)
+def wire_groups(d: int) -> int:
+    """Word rows G of the packed wire for a d-vector: the reference's
+    ``ops._to_rows`` pads ceil(d / LANES) rows up to a multiple of
+    ``PAD_ROWS``, and 32 rows make one row of words.  ``G * LANES`` is the
+    wire's word count."""
+    rows = -(-d // LANES)
+    rows += (-rows) % PAD_ROWS
+    return rows // GROUP
 
 
 def pack_ref(mask: torch.Tensor) -> torch.Tensor:
     """0/1 matrix (R, LANES), R % 32 == 0 -> (R//32, LANES) packed words."""
     r, l = mask.shape
     assert r % GROUP == 0
-    x = mask.to(torch.int64).reshape(r // GROUP, GROUP, l)
-    words = (x << _shifts(mask.device)[None, :, None]).sum(dim=1) & _M32
-    return _as_int32_bits(words)
+    x = (mask != 0).to(torch.int32).reshape(r // GROUP, GROUP, l)
+    words = torch.zeros((r // GROUP, l), dtype=torch.int32, device=mask.device)
+    for b in range(GROUP):
+        words |= x[:, b, :] << b
+    return words
 
 
 def unpack_ref(words: torch.Tensor) -> torch.Tensor:
     """(G, LANES) packed words -> (G*32, LANES) uint8 of 0/1."""
     g, l = words.shape
-    w = words.to(torch.int64) & _M32
-    bits = (w[:, None, :] >> _shifts(words.device)[None, :, None]) & 1
-    return bits.reshape(g * GROUP, l).to(torch.uint8)
+    out = torch.empty((g, GROUP, l), dtype=torch.uint8, device=words.device)
+    for b in range(GROUP):
+        out[:, b, :] = (words >> b) & 1
+    return out.reshape(g * GROUP, l)
 
 
 def popcount_accum_ref(words_stack: torch.Tensor) -> torch.Tensor:
     """(N, G, LANES) packed votes -> (G*32, LANES) int32 vote counts."""
     n, g, l = words_stack.shape
-    w = words_stack.to(torch.int64) & _M32
-    bits = (w[:, :, None, :] >> _shifts(w.device)[None, None, :, None]) & 1
-    return bits.sum(dim=0).reshape(g * GROUP, l).to(torch.int32)
+    out = torch.empty((g, GROUP, l), dtype=torch.int32, device=words_stack.device)
+    for b in range(GROUP):
+        out[:, b, :] = ((words_stack >> b) & 1).sum(dim=0, dtype=torch.int32)
+    return out.reshape(g * GROUP, l)
 
 
 def stoch_quant_ref(u: torch.Tensor, uniforms: torch.Tensor,

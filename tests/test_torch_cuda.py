@@ -14,7 +14,8 @@ import torch
 
 from repro_torch.core import EngineSpec, FediACConfig, aggregate_round, prng
 from repro_torch.data import classification, partition_dirichlet
-from repro_torch.kernels import gather_quant, stoch_quant
+from repro_torch.kernels import (bitpack, gather_quant, ref, stoch_quant,
+                                 vote_pack, vote_popcount)
 from repro_torch.testing import cuda_device, requires_cuda  # noqa: F401
 from repro_torch.training import fl_loop
 
@@ -47,6 +48,37 @@ def test_kernels_match_plain_on_card(cuda_device, f, density):
     qp, rp = gather_quant.gather_quant_plain(u, uni, sel, ft)
     assert _same(qk, qp) and _same(rk, rp)
     assert _same(sk, stoch_quant.stoch_quant_plain(u, uni, ft))
+
+
+@pytest.mark.parametrize("d", [1, 70_001, 262_144, 300_000])
+def test_wire_kernels_match_plain_on_card(cuda_device, d):
+    rng = np.random.default_rng(d)
+    mask = torch.from_numpy((rng.random(d) < 0.05).astype(np.uint8))
+    s = (rng.standard_normal(d) ** 3).astype(np.float32)
+    s[3::997] = np.nan
+    scores = torch.from_numpy(np.abs(s))
+    mask, scores = mask.to(cuda_device), scores.to(cuda_device)
+    kernels = (bitpack.pack, bitpack.unpack, vote_pack.vote_pack,
+               vote_popcount.popcount_accum)
+    before = [k.launches for k in kernels]
+    words = bitpack.pack(mask)
+    back = bitpack.unpack(words, d)
+    taus = [torch.tensor(t, device=cuda_device)
+            for t in (0.0, 0.5, float("inf"), float("-inf"))]
+    packed = [vote_pack.vote_pack(scores, t) for t in taus]
+    stack = torch.from_numpy(rng.integers(
+        -2**31, 2**31, (8, ref.wire_groups(d), ref.LANES), dtype=np.int64)
+        .astype(np.int32)).to(cuda_device)
+    counts = vote_popcount.popcount_accum(stack, d)
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [before[0] + 1, before[1] + 1,
+                                             before[2] + 4, before[3] + 1]
+    assert _same(words, bitpack.pack_plain(mask))
+    assert _same(back, mask)
+    assert _same(back, bitpack.unpack_plain(words, d))
+    for t, p in zip(taus, packed):
+        assert _same(p, vote_pack.vote_pack_plain(scores, t))
+    assert _same(counts, vote_popcount.popcount_accum_plain(stack, d))
 
 
 @pytest.mark.parametrize("vote_chunk", [1, 4])
