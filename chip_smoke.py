@@ -30,10 +30,11 @@ Phases, each of which raises (and exits non-zero) on failure:
    just after; gates on every rank; then both configs at d = 1,000,000 on
    the card and on the CPU, bitwise; then round and collective times;
 7. timing: each kernel, its plain version and its memory bound at the main
-   paths' shapes, and whole rounds.  A kernel's ``ms`` is CUDA-event time
-   per wrapper call (it includes the host's launch work whenever that is
-   slower than the kernel); ``device_ms`` is the kernel alone, from
-   ``torch.profiler``.
+   paths' shapes (``gather_quant`` at both of its shapes), and whole
+   rounds.  A kernel's ``ms`` is CUDA-event time per wrapper call (it
+   includes the host's launch work whenever that is slower than the
+   kernel); ``device_ms`` is the kernel alone, per launch of a replayed
+   CUDA graph of back-to-back calls.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -45,15 +46,18 @@ from __future__ import annotations
 
 import json
 import math
-import socket
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
 N_CLIENTS, D = 32, 1_000_000
+FL_SHAPE = (20, 21_322)          # the FL loop's update stack: 20 clients x
+                                 # the MLP 96-128-64-10's parameters
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores;
                                  # also the bound used for integer ALU work
@@ -136,23 +140,11 @@ def device_profile(fn, iters: int = 3) -> list:
     return sorted(rows, key=lambda r: -r[1])
 
 
-def kernel_device_ms(fn, kernel: str, iters: int = 20):
-    """Device ms of one launch of ``kernel`` inside ``fn()``, or None when
-    the profiler reports no device time for it (then the kernels it did
-    see are logged)."""
-    profile_rows = device_profile(fn, iters)
-    rows = [r for r in profile_rows if kernel in r[0]]
-    if not rows:
-        log(f"[profiler] no {kernel!r} among {len(profile_rows)} device "
-            f"rows: {[r[0][:120] for r in profile_rows[:5]]}")
-    return rows[0][1] / rows[0][2] if rows else None
-
-
-def graph_ms(fn, launches: int = 100, replays: int = 5):
+def graph_ms(fn, launches: int = 50, replays: int = 5) -> float:
     """Device ms per call of ``fn()`` replayed from a CUDA graph of
     ``launches`` back-to-back calls: the host's launch work drops out,
-    which a short kernel's per-call time cannot show.  None (logged) when
-    the capture is refused."""
+    which a short kernel's per-call time cannot show.  Raises when the
+    capture is refused."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -160,13 +152,9 @@ def graph_ms(fn, launches: int = 100, replays: int = 5):
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            for _ in range(launches):
-                fn()
-    except RuntimeError as e:
-        log(f"[graph] capture refused: {e}")
-        return None
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -175,6 +163,8 @@ def graph_ms(fn, launches: int = 100, replays: int = 5):
         graph.replay()
     stop.record()
     torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
     return start.elapsed_time(stop) / (replays * launches)
 
 
@@ -182,6 +172,15 @@ def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_kernel(fn, plain, nbytes: int, ops: int, shape: list) -> dict:
+    """A kernel wrapper's call ms (CUDA events per call), its device ms (a
+    CUDA graph's replay), its plain version's ms and its bound."""
+    t_b, by_b = bound(nbytes, ops)
+    return dict(ms=cuda_ms(fn), device_ms=graph_ms(fn),
+                plain_ms=cuda_ms(plain, iters=5), bound_ms=t_b, bound_by=by_b,
+                bytes=nbytes, shape=shape)
 
 
 def phase_card() -> str:
@@ -213,16 +212,36 @@ def _inputs(n, d, density, seed):
     return u, uni, sel
 
 
+def _stack_gather_inputs(n, d, seed):
+    """gather_quant's operands as the stacked round gives them to it: u,
+    uniforms, a 5% consensus mask and f from the stack's max."""
+    import torch
+    from repro_torch.core.quantize import scale_factor
+    u, uni, sel = _inputs(n, d, 0.05, seed)
+    return u, uni, sel, torch.tensor(scale_factor(12, n, 1.0),
+                                     device=DEV) / u.abs().max()
+
+
+def _ar_gather_inputs():
+    """gather_quant's operands as the allreduce's topk config (B) gives
+    them to it: one rank's update as a [1, AR_D] stack, its uniforms, a 5%
+    consensus mask and f from the update's max."""
+    import torch
+    from repro_torch.core.quantize import scale_factor
+    u = _rank_update(0, AR_D)[None]
+    _, uni, sel = _inputs(1, AR_D, 0.05, seed=3)
+    sf = scale_factor(_ar_configs()["B"].bits, AR_RANKS, 1.0)
+    return u, uni, sel, torch.tensor(sf, device=DEV) / u.abs().max()
+
+
 def phase_parity() -> dict:
     """Kernel vs plain version on the card, bitwise."""
     import torch
-    from repro_torch.core.quantize import scale_factor
     from repro_torch.kernels.gather_quant import gather_quant, gather_quant_plain
     from repro_torch.kernels.stoch_quant import stoch_quant, stoch_quant_plain
     errs = {"gather_quant": [], "stoch_quant": []}
-    u, uni, sel = _inputs(N_CLIENTS, D, 0.05, seed=1)
-    f = torch.tensor(scale_factor(12, N_CLIENTS, 1.0), device=DEV) / u.abs().max()
-    cases = [(u, uni, sel, f)]
+    cases = [_stack_gather_inputs(N_CLIENTS, D, seed=1), _ar_gather_inputs(),
+             _stack_gather_inputs(*FL_SHAPE, seed=4)]
     cap_g = 4 * round(0.05 * D / 4)           # C * g of the vote_chunk=4 round
     for fv in (1.0, 117.5, 4000.0):
         for dens in (0.0, 0.1, 1.0):
@@ -353,7 +372,8 @@ def phase_main_path(u_stack, key) -> dict:
           f"FL loop launched gather_quant "
           f"{launches['gather_quant'] - after_rounds[0]} times, "
           f"not {flcfg.rounds}")
-    return {"rounds": rounds, "hist": hist, "launches": launches}
+    return {"rounds": rounds, "hist": hist, "launches": launches,
+            "round_launches": after_rounds[0]}
 
 
 def phase_checks(u_stack, key, main) -> dict:
@@ -558,20 +578,17 @@ def allreduce_rank(rank: int, world: int) -> dict:
     return report
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def phase_allreduce() -> dict:
     """Spawn the AR_RANKS ranks once, run the allreduce path in them, and
     hold every rank to the gates."""
     from repro_torch import testing
     t0 = time.perf_counter()
-    reports = testing.run_ranks(allreduce_rank, AR_RANKS,
-                                f"tcp://localhost:{_free_port()}",
-                                timeout=900)
+    store = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        reports = testing.run_ranks(allreduce_rank, AR_RANKS,
+                                    f"file://{store}/store", timeout=900)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
     wall = time.perf_counter() - t0
     cfgs = _ar_configs()
     launches = {k: 0 for k in _counters()}
@@ -645,28 +662,22 @@ def phase_wire_timing() -> dict:
     words = bitpack.pack(mask)
     stack = _words(n, d, seed=6)
     cases = {
-        # name: (kernel call, plain call, CUDA symbol, bytes, operations)
+        # name: (kernel call, plain call, bytes, operations)
         "vote_pack": (lambda: vote_pack.vote_pack(scores, tau),
                       lambda: vote_pack.vote_pack_plain(scores, tau),
-                      "vote_pack_kernel", 4 * d + 4 * w + 4, 2 * d),
+                      4 * d + 4 * w + 4, 2 * d),
         "pack": (lambda: bitpack.pack(mask), lambda: bitpack.pack_plain(mask),
-                 "pack_kernel", d + 4 * w, 2 * d),
+                 d + 4 * w, 2 * d),
         "unpack": (lambda: bitpack.unpack(words, d),
-                   lambda: bitpack.unpack_plain(words, d),
-                   "unpack_kernel", 4 * w + d, 2 * d),
+                   lambda: bitpack.unpack_plain(words, d), 4 * w + d, 2 * d),
         "popcount_accum": (
             lambda: vote_popcount.popcount_accum(stack, d),
             lambda: vote_popcount.popcount_accum_plain(stack, d),
-            "popcount_kernel", 4 * n * w + 4 * d, 64 * n * w),
+            4 * n * w + 4 * d, 64 * n * w),
     }
-    out = {}
-    for name, (fn, plain, sym, nbytes, ops) in cases.items():
-        t_b, by_b = bound(nbytes, ops)
-        out[name] = dict(ms=cuda_ms(fn), device_ms=kernel_device_ms(fn, sym),
-                         graph_ms=graph_ms(fn),
-                         plain_ms=cuda_ms(plain, iters=5), bound_ms=t_b,
-                         bound_by=by_b, bytes=nbytes,
-                         shape=[n, d] if name == "popcount_accum" else [d])
+    out = {name: time_kernel(fn, plain, nbytes, ops,
+                             [n, d] if name == "popcount_accum" else [d])
+           for name, (fn, plain, nbytes, ops) in cases.items()}
     log("[wire timing] " + json.dumps(out))
     return out
 
@@ -674,33 +685,28 @@ def phase_wire_timing() -> dict:
 def phase_timing(u_stack, key) -> dict:
     import torch
     from repro_torch.core import fediac, prng, selection, voting
-    from repro_torch.core.quantize import scale_factor
     from repro_torch.kernels.gather_quant import gather_quant, gather_quant_plain
     from repro_torch.kernels.stoch_quant import stoch_quant, stoch_quant_plain
     from repro_torch.training.fl_loop import run_federated
     out = {}
     n, d = N_CLIENTS, D
-    u, uni, sel = _inputs(n, d, 0.05, seed=2)
-    f = torch.tensor(scale_factor(12, n, 1.0), device=DEV) / u.abs().max()
-    b_bytes = 16 * n * d + d + 4          # u, uni in; q, res out; sel; f
-    b_ops = 8 * n * d                      # mul floor sub cmp add div sub select
-    t_b, by_b = bound(b_bytes, b_ops)
-    out["gather_quant"] = dict(
-        ms=cuda_ms(lambda: gather_quant(u, uni, sel, f)),
-        device_ms=kernel_device_ms(lambda: gather_quant(u, uni, sel, f),
-                                   "gather_quant_kernel"),
-        plain_ms=cuda_ms(lambda: gather_quant_plain(u, uni, sel, f), iters=5),
-        bound_ms=t_b, bound_by=by_b, shape=[n, d])
+    u, uni, sel, f = _stack_gather_inputs(n, d, seed=2)
+    # gather_quant at each path's shape: u, uni in; q, res out (16 B per
+    # element); sel; f.  Operations: mul floor sub cmp add div sub select
+    for name, (gu, guni, gsel, gf) in (
+            ("gather_quant", (u, uni, sel, f)),
+            ("gather_quant_allreduce", _ar_gather_inputs()),
+            ("gather_quant_fl", _stack_gather_inputs(*FL_SHAPE, seed=5))):
+        rows, cols = gu.shape
+        out[name] = time_kernel(
+            lambda: gather_quant(gu, guni, gsel, gf),
+            lambda: gather_quant_plain(gu, guni, gsel, gf),
+            16 * rows * cols + cols + 4, 8 * rows * cols, [rows, cols])
     cols = 4 * round(0.05 * d / 4)
     a, b = u[:, :cols].contiguous(), uni[:, :cols].contiguous()
-    s_bytes, s_ops = 12 * n * cols + 4, 5 * n * cols
-    t_s, by_s = bound(s_bytes, s_ops)
-    out["stoch_quant"] = dict(
-        ms=cuda_ms(lambda: stoch_quant(a, b, f)),
-        device_ms=kernel_device_ms(lambda: stoch_quant(a, b, f),
-                                   "stoch_quant_kernel"),
-        plain_ms=cuda_ms(lambda: stoch_quant_plain(a, b, f), iters=5),
-        bound_ms=t_s, bound_by=by_s, shape=[n, cols])
+    out["stoch_quant"] = time_kernel(
+        lambda: stoch_quant(a, b, f), lambda: stoch_quant_plain(a, b, f),
+        12 * n * cols + 4, 5 * n * cols, [n, cols])
     for g in (1, 4):
         cfg = _round_cfg(g)
         out[f"round_g{g}_ms"] = wall_ms(
@@ -785,20 +791,32 @@ def main() -> int:
         # its ranks); unpack is on no path (no round calls it)
         launches = (main_path["launches"].get(name, 0)
                     + allreduce["launches"][name])
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches,
-                        "on_path": name != "unpack",
-                        "max_abs_err": parity_err[name], "bitwise": True,
-                        "ms": t["ms"], "device_ms": t["device_ms"],
-                        "graph_ms": t.get("graph_ms"),
-                        "plain_ms": t["plain_ms"],
-                        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                        "library_ms": None, "shape": t["shape"]})
-    wire = ("vote_pack", "pack", "unpack", "popcount_accum")
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": launches,
+                 "on_path": name != "unpack",
+                 "max_abs_err": parity_err[name], "bitwise": True,
+                 **{k: t[k] for k in ("ms", "device_ms", "plain_ms",
+                                      "bound_ms", "bound_by")},
+                 "library_ms": None, "shape": t["shape"]}
+        if name == "gather_quant":
+            # the stacked rounds launch it at [N_CLIENTS, D]; the FL loop
+            # and the allreduce's topk config at shapes of their own
+            fl = launches - main_path["round_launches"] \
+                - allreduce["launches"][name]
+            entry["launches_at_shape"] = main_path["round_launches"]
+            entry["also_at"] = [
+                {"launches": n_at, **{k: timing[key][k] for k in (
+                    "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                    "bound_by")}}
+                for key, n_at in (("gather_quant_allreduce",
+                                   allreduce["launches"][name]),
+                                  ("gather_quant_fl", fl))]
+        kernels.append(entry)
+    timed = ("gather_quant", "gather_quant_allreduce", "gather_quant_fl",
+             "stoch_quant", "vote_pack", "pack", "unpack", "popcount_accum")
     summary = {"build_s": build_s, "total_s": time.perf_counter() - t_start,
                **report, "allreduce": allreduce,
-               **{k: v for k, v in timing.items()
-                  if k not in ("gather_quant", "stoch_quant") + wire}}
+               **{k: v for k, v in timing.items() if k not in timed}}
     log("[summary] " + json.dumps(summary))
     print(json.dumps({"summary": summary}))
     print(json.dumps({"kernels": kernels}))

@@ -80,7 +80,8 @@ def run_ranks(fn, world_size: int, init_method: str, *args,
               timeout: float = 600.0) -> list:
     """Run ``fn(rank, world_size, *args)`` in ``world_size`` processes
     (``spawn`` start method) joined into one gloo process group at
-    ``init_method`` (``file://<path>`` or ``tcp://localhost:<port>``).
+    ``init_method``, a ``file://<path>`` store in a fresh directory (no
+    port to collide with another run).
 
     ``fn`` must be importable by the children and return something
     picklable.  Returns the results in rank order.  If a rank raises, or
