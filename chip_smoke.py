@@ -9,9 +9,12 @@ Phases, each of which raises (and exits non-zero) on failure:
 
 1. card: name and power limit, as ``nvidia-smi`` reports them;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (``quant.cu`` and ``votes.cu``, one ``nvcc`` each, in parallel);
+   (``quant.cu``, ``votes.cu`` and ``attention.cu``, one ``nvcc`` each, in
+   parallel);
 3. kernel parity: each kernel against its plain-torch version on the card,
-   bitwise, at the main paths' shapes and at ragged / edge cases;
+   at the main paths' shapes and at ragged / edge cases: bitwise for the
+   six FediAC kernels; for B6 ``flash_attention`` within a tolerance
+   (float32 3e-5, bfloat16 2e-2), since its sums run in another order;
 4. main path: two FediAC rounds at d = 1,000,000 and N = 32 (the largest
    monolithic cell of ``benchmarks/aggregation_round.py``), vote_chunk 1
    and 4, with the fused kernels on, then 3 rounds of the FL loop at its
@@ -34,7 +37,19 @@ Phases, each of which raises (and exits non-zero) on failure:
    rounds.  A kernel's ``ms`` is CUDA-event time per wrapper call (it
    includes the host's launch work whenever that is slower than the
    kernel); ``device_ms`` is the kernel alone, per launch of a replayed
-   CUDA graph of back-to-back calls.
+   CUDA graph of back-to-back calls;
+8. serve path: Qwen3-0.6B at full width and depth (28 layers, random
+   weights from ``PRNGKey(0)``) prefills 2 requests of 32,768 tokens
+   through ``make_serve_step`` (the counts zeroed just before; B6 must
+   launch once per layer), its logits finite; B6 against its plain version
+   (within one bfloat16 ulp of the output plus 2e-3) and against the
+   model's plain ``_blockwise_attention`` (2e-2) at layer 0's q, k, v;
+   the 2-layer model at S = 4,096 on the card against the CPU;
+   ``ServingEngine`` answering 4 requests on 2 slots, each request's
+   tokens equal to its own greedy decode (float32); a bfloat16 engine of
+   16 slots with a 32,768-token cache (``DECODE_32K``'s cache, its batch
+   cut) answering 16 requests, timed and profiled; then the prefill and B6
+   (with SDPA as the library yardstick) timed.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -68,6 +83,40 @@ AR_CHECK_D = 1_000_000           # card vs CPU allreduce width
 AR_ROUNDS = 2
 AR_TIME_ITERS = 3
 WIRE_D = AR_D
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores (data sheet)
+QWEN = "qwen3_0p6b"
+QWEN_PARAMS = 596_049_920
+PREFILL_SEQ = 32_768             # PREFILL_32K (configs/base.py)
+PREFILL_BATCH = 2                # of PREFILL_32K's 32 (PERF.md section 4)
+CHECK_LAYERS, CHECK_SEQ = 2, 4_096   # card vs CPU prefill
+DECODE_REQUESTS = ((16, 8), (48, 8), (32, 8), (24, 8))   # (prompt, max_new)
+DECODE_SLOTS, DECODE_CACHE = 2, 128      # the float32 token check
+#: the timed bfloat16 engine: DECODE_32K (configs/base.py: cache 32,768,
+#: batch 128) with its batch cut to 16 slots, 56 GiB of KV cache, so that
+#: it fits the card (PERF.md section 4); one request per slot
+TIMED_SLOTS, TIMED_CACHE = 16, 32_768
+PROFILE_TICKS = 6                # engine ticks per profiled window
+#: B6 parity shapes: (b, s, t, h, hk, d, dv, causal, window), as the card
+#: tests of tests/test_torch_cuda.py
+FLASH_CASES = ((1, 1024, 1024, 4, 2, 64, 64, True, 0),
+               (1, 1024, 1024, 4, 2, 64, 64, True, 256),
+               (2, 512, 512, 8, 8, 32, 32, True, 0),
+               (1, 512, 512, 4, 1, 128, 128, True, 256),
+               (1, 1000, 1000, 4, 2, 64, 64, True, 100),
+               (1, 384, 384, 4, 4, 192, 128, True, 0),
+               (1, 300, 700, 4, 2, 256, 256, False, 64))
+#: B6 is held to a tolerance, not bitwise: float32 3e-5 (the reference
+#: test's), bfloat16 2e-2 (test_flash_bf16's), as |a - b| <= tol + tol |b|
+FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+#: B6 against its plain version at the 32k layer, as |a - b| <= abs + rel |b|:
+#: both sum in float32 and round the output to bfloat16 once, so they may
+#: differ by one bfloat16 ulp of the output (at most 2^-7 |b|) plus float32
+#: noise; the absolute 2e-3 is twice the largest error read on this layer
+#: (9.8e-4), and far below a typical output there (PERF.md section 6)
+LAYER_TOL = (2e-3, 2.0 ** -7)
+#: card (B6) vs CPU (plain) prefill at 2 layers, float32, relative to the
+#: largest logit: about 3x the reading of every run so far (3.0e-6)
+CHECK_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -447,13 +496,14 @@ def _ar_configs():
 
 
 def _counters() -> dict:
-    from repro_torch.kernels import (bitpack, gather_quant, stoch_quant,
-                                     vote_pack, vote_popcount)
+    from repro_torch.kernels import (bitpack, flash_attention, gather_quant,
+                                     stoch_quant, vote_pack, vote_popcount)
     return {"gather_quant": gather_quant.gather_quant,
             "stoch_quant": stoch_quant.stoch_quant,
             "vote_pack": vote_pack.vote_pack, "pack": bitpack.pack,
             "unpack": bitpack.unpack,
-            "popcount_accum": vote_popcount.popcount_accum}
+            "popcount_accum": vote_popcount.popcount_accum,
+            "flash_attention": flash_attention.flash_attention}
 
 
 def _rank_update(rank: int, d: int):
@@ -742,6 +792,325 @@ def phase_timing(u_stack, key) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The serve path: Qwen3-0.6B prefill at 32k (B6) and the decode engine
+# ---------------------------------------------------------------------------
+
+def flash_close(got, want, tol=None) -> tuple[bool, float]:
+    """|got - want| <= abs + rel |want| on f32-converted values, ``tol`` an
+    (abs, rel) pair (B6's tolerance for the dtype unless given), and the max
+    abs error."""
+    if tol is None:
+        tol = (FLASH_TOL[str(want.dtype).removeprefix("torch.")],) * 2
+    a, b = got.float(), want.float()
+    err = (a - b).abs()
+    return bool((err <= tol[0] + tol[1] * b.abs()).all()), float(err.max())
+
+
+def phase_flash_parity() -> dict:
+    """B6 against its plain version on the card at the card tests' shapes,
+    float32 and bfloat16."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    errs = {}
+    for b, s, t, h, hk, d, dv, causal, window in FLASH_CASES:
+        gen = torch.Generator(device=DEV).manual_seed(s + t + d + window)
+        q32 = torch.randn(b, s, h, d, device=DEV, generator=gen)
+        k32 = torch.randn(b, t, hk, d, device=DEV, generator=gen)
+        v32 = torch.randn(b, t, hk, dv, device=DEV, generator=gen)
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = q32.to(dt), k32.to(dt), v32.to(dt)
+            got = flash_attention(q, k, v, causal=causal, window=window)
+            want = flash_attention_plain(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            ok, err = flash_close(got, want)
+            check(ok and got.dtype == dt, f"flash_attention != plain at "
+                  f"{(b, s, t, h, hk, d, dv, causal, window)} {dt}: {err}")
+            key = str(dt).removeprefix("torch.")
+            errs[key] = max(errs.get(key, 0.0), err)
+    log(f"[flash parity] {len(FLASH_CASES)} shapes x 2 dtypes within "
+        f"{FLASH_TOL}; max errors {errs}")
+    return errs
+
+
+def _prompts(vocab: int, n: int = len(DECODE_REQUESTS)) -> list:
+    """``n`` random prompts, their lengths and max_new from DECODE_REQUESTS
+    in turn."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    reqs = [DECODE_REQUESTS[i % len(DECODE_REQUESTS)] for i in range(n)]
+    return [(rng.integers(0, vocab, p).tolist(), m) for p, m in reqs]
+
+
+def _engine_run(eng, prompts) -> tuple[list, int, float]:
+    """``eng`` serving ``prompts`` until every one is answered: (requests,
+    ticks, seconds)."""
+    import torch
+    from repro_torch.serving import Request
+    reqs = [Request(uid=i, prompt=p, max_new=m)
+            for i, (p, m) in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks, logits = 0, None
+    while any(sl is not None for sl in eng.slots) or eng.queue:
+        logits = eng.step(logits)
+        ticks += 1
+    torch.cuda.synchronize()
+    return reqs, ticks, time.perf_counter() - t0
+
+
+def _greedy(cfg, params, prompt, max_new) -> list:
+    """One request's own greedy decode at batch 1 on the card."""
+    import numpy as np
+    from repro_torch.configs import InputShape
+    from repro_torch.models import init_caches
+    from repro_torch.training.serve import make_serve_step
+    bundle = make_serve_step(cfg, InputShape("decode", DECODE_CACHE, 1,
+                                             "decode"))
+    caches = init_caches(cfg, 1, bundle.cache_len)
+    out, logits = [], None
+    for pos, tok in enumerate(prompt + [None] * max_new):
+        if tok is None:
+            out.append(int(np.argmax(logits[0, -1].float().cpu().numpy())))
+            if len(out) == max_new:
+                break
+            tok = out[-1]
+        logits, caches = bundle.step(params, caches, [[tok]], pos)
+    return out
+
+
+def phase_serve() -> dict:
+    """The serve path's main run (the 32k prefill through B6), its checks,
+    the card-vs-CPU prefill, the decode engine, and their times."""
+    import copy
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import InputShape, get
+    from repro_torch.core import prng
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn, init_params, param_count
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.training.serve import make_serve_step
+    out = {}
+    cfg = get(QWEN)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, prng.PRNGKey(0, device=DEV))
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    check(param_count(params) == QWEN_PARAMS,
+          f"{QWEN} has {param_count(params)} parameters, not {QWEN_PARAMS}")
+    shape = InputShape("prefill_32k", PREFILL_SEQ, PREFILL_BATCH, "prefill")
+    bundle = make_serve_step(cfg, shape)
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ),
+                           device=DEV, generator=gen)
+
+    # -- main path: one prefill, counts zeroed just before and read just
+    # after; layer 0's q, k, v are kept as the kernel receives them
+    captured = []
+    real = attn.flash_attention
+
+    def capture(q, k, v, **kw):
+        if not captured:
+            captured.append((q, k, v, kw))
+        return real(q, k, v, **kw)
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    attn.flash_attention = capture
+    try:
+        t0 = time.perf_counter()
+        logits = bundle.step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        out["prefill_first_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        attn.flash_attention = real
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {k: (cfg.n_layers if k == "flash_attention" else 0)
+            for k in launches}
+    check(launches == want, f"prefill launches {launches}, not {want}")
+    check(logits.shape == (PREFILL_BATCH, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"prefill logits {tuple(logits.shape)} not finite / shaped")
+    out["launches"] = launches["flash_attention"]
+    out["prefill_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["next_tokens"] = logits.float().argmax(-1).tolist()
+    log(f"[serve] {QWEN} prefill {PREFILL_BATCH} x {PREFILL_SEQ}: B6 launched "
+        f"{out['launches']} times; next tokens {out['next_tokens']} "
+        f"({out['prefill_first_ms']:.0f} ms)")
+
+    # -- B6 at layer 0's operands: against its plain version and against
+    # the model's own plain path (which casts p to bf16 before p.v)
+    q, k, v, kw = captured[0]
+    check(q.shape == (PREFILL_BATCH, PREFILL_SEQ, cfg.n_heads, cfg.head_dim)
+          and k.shape == (PREFILL_BATCH, PREFILL_SEQ, cfg.n_kv_heads,
+                          cfg.head_dim) and q.dtype == torch.bfloat16,
+          f"layer 0 operands {tuple(q.shape)} {tuple(k.shape)} {q.dtype}")
+    got = fa.flash_attention(q, k, v, **kw)
+    plain = fa.flash_attention_plain(q, k, v, **kw).float()
+    ok, out["layer_err_vs_plain"] = flash_close(got, plain, LAYER_TOL)
+    out["layer_rms_plain"] = float(plain.square().mean().sqrt())
+    out["layer_rms_err_vs_plain"] = float(
+        (got.float() - plain).square().mean().sqrt())
+    del plain
+    check(ok, f"B6 != plain at layer 0: {out['layer_err_vs_plain']} "
+          f"(tolerance {LAYER_TOL})")
+    pos = torch.arange(PREFILL_SEQ, device=DEV)
+    model_plain = attn._blockwise_attention(
+        q, k, v, pos, pos, True, 0, 1.0 / math.sqrt(cfg.head_dim),
+        cfg.attn_q_block, cfg.attn_kv_block)
+    ok, out["layer_err_vs_blockwise"] = flash_close(got, model_plain)
+    check(ok, f"B6 != the model's plain blockwise path at layer 0: "
+          f"{out['layer_err_vs_blockwise']}")
+    del got, model_plain
+    log(f"[serve] B6 at layer 0 vs plain {out['layer_err_vs_plain']:.3g} "
+        f"(rms {out['layer_rms_err_vs_plain']:.3g}; the plain output's rms "
+        f"{out['layer_rms_plain']:.3g}), vs the model's blockwise path "
+        f"{out['layer_err_vs_blockwise']:.3g}")
+
+    # -- card vs CPU at full width: 2 layers, S = CHECK_SEQ, float32
+    cfg2 = cfg.with_(n_layers=CHECK_LAYERS, compute_dtype="float32")
+    p2 = init_params(cfg2, prng.PRNGKey(0, device=DEV))
+    p2_cpu = copy.deepcopy(p2).cpu()
+    shape2 = InputShape("prefill_check", CHECK_SEQ, 1, "prefill")
+    toks2 = tokens[:1, :CHECK_SEQ]
+    before = fa.flash_attention.launches
+    lg = make_serve_step(cfg2, shape2).step(p2, {"tokens": toks2})
+    torch.cuda.synchronize()
+    check(fa.flash_attention.launches - before == CHECK_LAYERS,
+          "the card check prefill did not launch B6 once per layer")
+    t0 = time.perf_counter()
+    lc = make_serve_step(cfg2, shape2, device="cpu").step(
+        p2_cpu, {"tokens": toks2.cpu()})
+    out["check_cpu_s"] = time.perf_counter() - t0
+    rel = float((lg.cpu() - lc).abs().max() / lc.abs().max())
+    same_argmax = bool(torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1)))
+    out["check_rel_err"], out["check_same_argmax"] = rel, same_argmax
+    # RoPE's cos/sin and the matmuls differ by ulps between the devices;
+    # a wrong kernel moves the logits by far more
+    check(rel <= CHECK_TOL and same_argmax,
+          f"card vs CPU prefill: rel err {rel}, same argmax {same_argmax}")
+    log(f"[serve] card vs CPU, {CHECK_LAYERS} layers, S={CHECK_SEQ}, f32: rel "
+        f"err {rel:.3g}, same argmax ({out['check_cpu_s']:.1f} s on the CPU)")
+    del p2, p2_cpu
+
+    # -- decode engine at full width, float32: every request answered and
+    # equal to its own greedy decode
+    cfg32 = cfg.with_(compute_dtype="float32")
+    prompts = _prompts(cfg.vocab)
+    eng = ServingEngine(cfg32, params, max_batch=DECODE_SLOTS,
+                        cache_len=DECODE_CACHE)
+    reqs, ticks, secs = _engine_run(eng, prompts)
+    for r, (p, m) in zip(reqs, prompts):
+        check(len(r.out) == m, f"request {r.uid} got {len(r.out)} of {m}")
+        alone = _greedy(cfg32, params, p, m)
+        check(r.out == alone, f"request {r.uid}: engine {r.out} != its own "
+              f"greedy decode {alone}")
+    out["decode_f32_tick_ms"] = secs * 1e3 / ticks
+    log(f"[serve] engine f32: {len(reqs)} requests on {DECODE_SLOTS} slots, "
+        f"{ticks} ticks, tokens equal to independent decode")
+
+    # -- the bf16 engine timed at DECODE_32K's cache length on TIMED_SLOTS
+    # slots, one request each.  decode_attention reads every cache row,
+    # filled or not, so a tick costs what it costs on a full cache; a
+    # decode step with every slot at the cache's last position shows it.
+    # An engine is freed by the cycle collector (its admission queue holds
+    # its bound ``_reset_slot``)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = _prompts(cfg.vocab, TIMED_SLOTS)
+    eng = ServingEngine(cfg, params, max_batch=TIMED_SLOTS,
+                        cache_len=TIMED_CACHE)
+    reqs, ticks, secs = _engine_run(eng, prompts)
+    check(all(len(r.out) == m for r, (_, m) in zip(reqs, prompts)),
+          "bf16 engine left a request unanswered")
+    out["decode_ticks"] = ticks
+    out["decode_bf16_tick_ms"] = secs * 1e3 / ticks
+    # where a tick's device time goes, and how long the device sits idle:
+    # PROFILE_TICKS ticks of the same engine serving the prompts again,
+    # past their first ticks
+    for i, (p, m) in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new=m))
+    last = [None]
+
+    def some_ticks():
+        for _ in range(PROFILE_TICKS):
+            last[0] = eng.step(last[0])
+
+    some_ticks()
+    rows = device_profile(some_ticks, iters=1)
+    busy = sum(r[1] for r in rows) / PROFILE_TICKS
+    out["decode_bf16_device_ms_per_tick"] = busy
+    out["decode_bf16_launches_per_tick"] = sum(r[2] for r in rows) / PROFILE_TICKS
+    out["decode_bf16_idle_share"] = 1.0 - busy / out["decode_bf16_tick_ms"]
+    out["decode_bf16_top_kernels"] = [(n[:60], ms / PROFILE_TICKS,
+                                       c / PROFILE_TICKS)
+                                      for n, ms, c in rows[:5]]
+    full_step = make_serve_step(cfg, InputShape(
+        "decode_32k", TIMED_CACHE, TIMED_SLOTS, "decode")).step
+    toks = torch.zeros(TIMED_SLOTS, 1, dtype=torch.int64, device=DEV)
+    full = torch.full((TIMED_SLOTS,), TIMED_CACHE - 1, device=DEV)
+    out["decode_bf16_full_cache_step_ms"] = cuda_ms(
+        lambda: full_step(params, eng.caches, toks, full), iters=3, warmup=1)
+    out["decode_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[serve] engine bf16: {len(reqs)} requests on {TIMED_SLOTS} slots, "
+        f"cache {TIMED_CACHE}: {out['decode_bf16_tick_ms']:.1f} ms per tick, "
+        f"{out['decode_bf16_full_cache_step_ms']:.1f} ms per step on a full "
+        f"cache")
+    del eng, last
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- times: the prefill, B6 at layer 0's shape, SDPA as the yardstick
+    t0 = time.perf_counter()
+    bundle.step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["prefill_tokens_per_s"] = PREFILL_BATCH * PREFILL_SEQ / out["prefill_ms"] * 1e3
+    rows = device_profile(lambda: bundle.step(params, {"tokens": tokens}),
+                          iters=1)
+    busy = sum(r[1] for r in rows)
+    out["prefill_device_ms"] = busy
+    out["prefill_launches"] = sum(r[2] for r in rows)
+    out["prefill_idle_share"] = 1.0 - busy / out["prefill_ms"]
+    out["prefill_top_kernels"] = [(n[:60], ms, c) for n, ms, c in rows[:5]]
+    # causal, S = T, no window: S (S + 1) / 2 visible (q, k) pairs per
+    # (batch, head), 2 D + 2 Dv FLOPs each
+    fl = PREFILL_BATCH * cfg.n_heads * PREFILL_SEQ * (PREFILL_SEQ + 1) // 2 \
+        * 2 * (q.shape[-1] + v.shape[-1])
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = fl / BF16_OPS_PER_S * 1e3
+    b6 = dict(ms=cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), iters=3,
+                         warmup=1),
+              device_ms=graph_ms(lambda: fa.flash_attention(q, k, v, **kw),
+                                 launches=3, replays=1),
+              plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                               iters=1, warmup=1),
+              bound_ms=max(t_bytes, t_ops),
+              bound_by="operations" if t_ops >= t_bytes else "bytes",
+              bound_f32_simt_ms=fl / FP32_OPS_PER_S * 1e3, flops=fl,
+              bytes=nbytes, shape=[PREFILL_BATCH, PREFILL_SEQ, cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.head_dim,
+                                   cfg.head_dim])
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    b6["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
+    out["b6"] = b6
+    out["b6_share_of_prefill"] = b6["device_ms"] * cfg.n_layers / out["prefill_ms"]
+    log("[serve timing] " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -764,6 +1133,7 @@ def main() -> int:
     build_s = phase_build()
     parity_err = phase_parity()
     parity_err.update(phase_wire_parity())
+    flash_err = phase_flash_parity()
     gen = torch.Generator(device=DEV).manual_seed(0)
     scale = torch.empty(D, device=DEV).exponential_(generator=gen)
     u_stack = torch.randn(N_CLIENTS, D, device=DEV, generator=gen) * scale
@@ -773,6 +1143,7 @@ def main() -> int:
     allreduce = phase_allreduce()
     timing = phase_timing(u_stack, key)
     timing.update(phase_wire_timing())
+    serve = phase_serve()
 
     quant_src = "src/repro_torch/kernels/csrc/quant.cu"
     votes_src = "src/repro_torch/kernels/csrc/votes.cu"
@@ -812,10 +1183,25 @@ def main() -> int:
                                    allreduce["launches"][name]),
                                   ("gather_quant_fl", fl))]
         kernels.append(entry)
+    b6 = serve["b6"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:32",
+        # the 32k prefill's launches, one per layer
+        "launches": serve["launches"], "on_path": True,
+        "max_abs_err": serve["layer_err_vs_plain"], "bitwise": False,
+        "tolerance": {"abs": LAYER_TOL[0], "rel": LAYER_TOL[1]},
+        "max_abs_err_small_shapes": flash_err,
+        "tolerance_small_shapes": FLASH_TOL,
+        **{k: b6[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                              "bound_by", "bound_f32_simt_ms", "library_ms",
+                              "shape")}})
+    serve = {k: v for k, v in serve.items() if k != "b6"}
     timed = ("gather_quant", "gather_quant_allreduce", "gather_quant_fl",
              "stoch_quant", "vote_pack", "pack", "unpack", "popcount_accum")
     summary = {"build_s": build_s, "total_s": time.perf_counter() - t_start,
-               **report, "allreduce": allreduce,
+               **report, "allreduce": allreduce, "serve": serve,
                **{k: v for k, v in timing.items() if k not in timed}}
     log("[summary] " + json.dumps(summary))
     print(json.dumps({"summary": summary}))

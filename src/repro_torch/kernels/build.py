@@ -47,6 +47,12 @@ SOURCES = {
         ("repro_popcount", [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]),
     ),
+    "attention": (
+        ("repro_flash_attention", [ctypes.c_void_p] * 4
+         + [ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_void_p]),
+    ),
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,5 @@
-"""The FL simulator of the port (in-memory transport, FediAC aggregator)."""
+"""The FL simulator of the port (in-memory transport, FediAC aggregator)
+and the serving steps (:mod:`.serve`)."""
 
 from .fl_loop import FLConfig, FLHistory, RoundRecord, run_federated
 

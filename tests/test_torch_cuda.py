@@ -14,8 +14,8 @@ import torch
 
 from repro_torch.core import EngineSpec, FediACConfig, aggregate_round, prng
 from repro_torch.data import classification, partition_dirichlet
-from repro_torch.kernels import (bitpack, gather_quant, ref, stoch_quant,
-                                 vote_pack, vote_popcount)
+from repro_torch.kernels import (bitpack, flash_attention, gather_quant, ref,
+                                 stoch_quant, vote_pack, vote_popcount)
 from repro_torch.testing import cuda_device, requires_cuda  # noqa: F401
 from repro_torch.training import fl_loop
 
@@ -109,3 +109,54 @@ def test_fl_loop_on_card_matches_cpu(cuda_device):
     assert h_card.traffic_mb == h_cpu.traffic_mb
     assert h_card.wall_clock == h_cpu.wall_clock
     np.testing.assert_allclose(h_card.loss, h_cpu.loss, rtol=1e-4)
+
+
+def _close(got, want, dtype):
+    # f32: the reference test's 3e-5; bf16: 2e-2 (both round the output to
+    # bf16, so a last-bit difference is within it), on f32-converted values
+    tol = 3e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,hk,d,dv,causal,window", [
+    (1, 1024, 1024, 4, 2, 64, 64, True, 0),
+    (1, 1024, 1024, 4, 2, 64, 64, True, 256),
+    (2, 512, 512, 8, 8, 32, 32, True, 0),
+    (2, 512, 512, 8, 8, 32, 32, True, 256),
+    (1, 512, 512, 4, 1, 128, 128, True, 0),
+    (1, 512, 512, 4, 1, 128, 128, True, 256),
+    (1, 1000, 1000, 4, 2, 64, 64, True, 0),       # ragged S = T
+    (1, 1000, 1000, 4, 2, 64, 64, True, 100),
+    (1, 384, 384, 4, 4, 192, 128, True, 0),       # Dv != D (MLA's 192/128)
+    (1, 300, 700, 4, 2, 64, 64, False, 0),        # causal off, T != S
+    (1, 300, 700, 4, 2, 256, 256, False, 64),     # Gemma's head_dim
+])
+def test_flash_attention_matches_plain_on_card(cuda_device, dtype, b, s, t, h,
+                                               hk, d, dv, causal, window):
+    gen = torch.Generator(device=cuda_device).manual_seed(s + t + d + window)
+    q = torch.randn(b, s, h, d, device=cuda_device, generator=gen).to(dtype)
+    k = torch.randn(b, t, hk, d, device=cuda_device, generator=gen).to(dtype)
+    v = torch.randn(b, t, hk, dv, device=cuda_device, generator=gen).to(dtype)
+    fa = flash_attention.flash_attention
+    before = fa.launches
+    got = fa(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, s, h, dv)
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                                 window=window)
+    _close(got, want, dtype)
+
+
+def test_flash_attention_reads_strides_on_card(cuda_device):
+    # q, k, v as views of fused projections (no copies): the kernel reads
+    # them through their strides
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    qkv = torch.randn(2, 600, 8, 3 * 64, device=cuda_device, generator=gen)
+    q, k, v = qkv[..., :64], qkv[:, :, :4, 64:128], qkv[:, :, 4:, 128:]
+    got = flash_attention.flash_attention(q, k, v, window=128)
+    want = flash_attention.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                                 v.contiguous(), window=128)
+    _close(got, want, torch.float32)

@@ -13,9 +13,12 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch import models
+from repro_torch.configs import PREFILL_32K, get_smoke
 from repro_torch.core import prng
+from repro_torch.serving import ServingEngine
 from repro_torch.data import classification, partition_iid
-from repro_torch.training import fl_loop
+from repro_torch.training import fl_loop, serve
 
 SRC = Path(repro_torch.__file__).resolve().parent
 
@@ -40,6 +43,20 @@ def test_import_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= len(_modules())
+
+
+def test_serving_path_imports_load_no_jax():
+    # the serving slice's entry modules alone, in a fresh interpreter
+    code = ("import sys\n"
+            "import repro_torch.models, repro_torch.serving\n"
+            "import repro_torch.training.serve, repro_torch.configs\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC.parent))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 _IMPORT = re.compile(r"^\s*(?:from|import)\s+([\w.]+)")
@@ -82,6 +99,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         fl_loop.params_from_jax([{"w": np.zeros((2, 2)), "b": np.zeros(2)}])
     with pytest.raises(RuntimeError, match="CUDA"):
         prng.PRNGKey(0)
+    cfg = get_smoke("qwen3_0p6b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.init_params(cfg, prng.PRNGKey(0, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.init_caches(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.make_serve_step(cfg, PREFILL_32K)
+    params = models.init_params(cfg, prng.PRNGKey(0, device="cpu"), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg, params)
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
 
 
