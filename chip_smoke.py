@@ -10,7 +10,8 @@ Phases, each of which raises (and exits non-zero) on failure:
 1. card: name and power limit, as ``nvidia-smi`` reports them;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``quant.cu``, ``votes.cu`` and ``attention.cu``, one ``nvcc`` each, in
-   parallel);
+   parallel), and count the HGMMA (tensor-core) instructions in the
+   attention library's SASS (``cuobjdump``), which must be more than 0;
 3. kernel parity: each kernel against its plain-torch version on the card,
    at the main paths' shapes and at ragged / edge cases: bitwise for the
    six FediAC kernels; for B6 ``flash_attention`` within a tolerance
@@ -40,16 +41,19 @@ Phases, each of which raises (and exits non-zero) on failure:
    CUDA graph of back-to-back calls;
 8. serve path: Qwen3-0.6B at full width and depth (28 layers, random
    weights from ``PRNGKey(0)``) prefills 2 requests of 32,768 tokens
-   through ``make_serve_step`` (the counts zeroed just before; B6 must
-   launch once per layer), its logits finite; B6 against its plain version
-   (within one bfloat16 ulp of the output plus 2e-3) and against the
-   model's plain ``_blockwise_attention`` (2e-2) at layer 0's q, k, v;
-   the 2-layer model at S = 4,096 on the card against the CPU;
+   through ``make_serve_step`` (the counts zeroed just before; B6's bf16
+   tensor-core instance must launch once per layer), its logits finite;
+   B6 against its plain version (within one bfloat16 ulp of the output
+   plus 2e-3) and against the model's plain ``_blockwise_attention``
+   (2e-2) at layer 0's q, k, v; the 2-layer model at S = 4,096 in float32
+   on the card (B6's float32 SIMT instance, once per layer, held to its
+   plain version at layer 0) against the CPU;
    ``ServingEngine`` answering 4 requests on 2 slots, each request's
    tokens equal to its own greedy decode (float32); a bfloat16 engine of
    16 slots with a 32,768-token cache (``DECODE_32K``'s cache, its batch
-   cut) answering 16 requests, timed and profiled; then the prefill and B6
-   (with SDPA as the library yardstick) timed.
+   cut) answering 16 requests, timed and profiled; then the prefill and
+   both B6 instances at their layers (with SDPA as the library yardstick)
+   timed, the bf16 one also in TFLOP/s on the reference FLOPs.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -104,7 +108,9 @@ FLASH_CASES = ((1, 1024, 1024, 4, 2, 64, 64, True, 0),
                (1, 512, 512, 4, 1, 128, 128, True, 256),
                (1, 1000, 1000, 4, 2, 64, 64, True, 100),
                (1, 384, 384, 4, 4, 192, 128, True, 0),
-               (1, 300, 700, 4, 2, 256, 256, False, 64))
+               (1, 300, 700, 4, 2, 256, 256, False, 64),
+               (1, 700, 300, 4, 2, 64, 64, False, 64),
+               (1, 333, 333, 4, 2, 256, 256, True, 0))
 #: B6 is held to a tolerance, not bitwise: float32 3e-5 (the reference
 #: test's), bfloat16 2e-2 (test_flash_bf16's), as |a - b| <= tol + tol |b|
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
@@ -248,6 +254,23 @@ def phase_build() -> float:
     total = time.perf_counter() - t0
     log(f"[build] {seconds} ({total:.1f} s in all)")
     return total
+
+
+def hgmma_count() -> int:
+    """The number of HGMMA (wgmma) instructions in the built attention
+    library's SASS: more than 0 shows that B6's bf16 instance runs on the
+    tensor cores."""
+    import os
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build._lib_path("attention"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    n = sum("HGMMA" in line for line in sass.splitlines())
+    log(f"[build] HGMMA instructions in libattention's SASS: {n}")
+    check(n > 0, "the attention library has no HGMMA instruction")
+    return n
 
 
 def _inputs(n, d, density, seed):
@@ -911,31 +934,42 @@ def phase_serve() -> dict:
     tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ),
                            device=DEV, generator=gen)
 
+    def capture_layer0(step):
+        """``step()`` with the model's B6 calls watched: its result, layer
+        0's (q, k, v, kw) as the kernel receives them, and the dtype (the
+        kernel instance) of every call."""
+        captured, dtypes = [], []
+        real = attn.flash_attention
+
+        def capture(q, k, v, **kw):
+            if not captured:
+                captured.append((q, k, v, kw))
+            dtypes.append(str(q.dtype).removeprefix("torch."))
+            return real(q, k, v, **kw)
+
+        attn.flash_attention = capture
+        try:
+            result = step()
+        finally:
+            attn.flash_attention = real
+        return result, captured[0], dtypes
+
     # -- main path: one prefill, counts zeroed just before and read just
-    # after; layer 0's q, k, v are kept as the kernel receives them
-    captured = []
-    real = attn.flash_attention
-
-    def capture(q, k, v, **kw):
-        if not captured:
-            captured.append((q, k, v, kw))
-        return real(q, k, v, **kw)
-
+    # after; every B6 launch is the bf16 (tensor-core) instance
     counters = _counters()
     for c in counters.values():
         c.launches = 0
-    attn.flash_attention = capture
-    try:
-        t0 = time.perf_counter()
-        logits = bundle.step(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-        out["prefill_first_ms"] = (time.perf_counter() - t0) * 1e3
-    finally:
-        attn.flash_attention = real
+    t0 = time.perf_counter()
+    logits, (q, k, v, kw), dtypes = capture_layer0(
+        lambda: bundle.step(params, {"tokens": tokens}))
+    torch.cuda.synchronize()
+    out["prefill_first_ms"] = (time.perf_counter() - t0) * 1e3
     launches = {k: c.launches for k, c in counters.items()}
     want = {k: (cfg.n_layers if k == "flash_attention" else 0)
             for k in launches}
     check(launches == want, f"prefill launches {launches}, not {want}")
+    check(dtypes == ["bfloat16"] * cfg.n_layers,
+          f"prefill B6 calls by dtype {dtypes}, not bf16 once per layer")
     check(logits.shape == (PREFILL_BATCH, cfg.vocab)
           and bool(torch.isfinite(logits.float()).all()),
           f"prefill logits {tuple(logits.shape)} not finite / shaped")
@@ -948,7 +982,6 @@ def phase_serve() -> dict:
 
     # -- B6 at layer 0's operands: against its plain version and against
     # the model's own plain path (which casts p to bf16 before p.v)
-    q, k, v, kw = captured[0]
     check(q.shape == (PREFILL_BATCH, PREFILL_SEQ, cfg.n_heads, cfg.head_dim)
           and k.shape == (PREFILL_BATCH, PREFILL_SEQ, cfg.n_kv_heads,
                           cfg.head_dim) and q.dtype == torch.bfloat16,
@@ -982,10 +1015,20 @@ def phase_serve() -> dict:
     shape2 = InputShape("prefill_check", CHECK_SEQ, 1, "prefill")
     toks2 = tokens[:1, :CHECK_SEQ]
     before = fa.flash_attention.launches
-    lg = make_serve_step(cfg2, shape2).step(p2, {"tokens": toks2})
+    lg, (q32, k32, v32, kw32), dtypes = capture_layer0(
+        lambda: make_serve_step(cfg2, shape2).step(p2, {"tokens": toks2}))
     torch.cuda.synchronize()
-    check(fa.flash_attention.launches - before == CHECK_LAYERS,
-          "the card check prefill did not launch B6 once per layer")
+    out["check_launches"] = fa.flash_attention.launches - before
+    check(out["check_launches"] == CHECK_LAYERS
+          and dtypes == ["float32"] * CHECK_LAYERS,
+          "the card check prefill did not launch B6's float32 instance once "
+          f"per layer ({dtypes})")
+    # B6's float32 (SIMT) instance at its layer 0 against its plain version
+    ok, out["check_layer_err_vs_plain"] = flash_close(
+        fa.flash_attention(q32, k32, v32, **kw32),
+        fa.flash_attention_plain(q32, k32, v32, **kw32))
+    check(ok, f"B6 float32 != plain at the check prefill's layer 0: "
+          f"{out['check_layer_err_vs_plain']}")
     t0 = time.perf_counter()
     lc = make_serve_step(cfg2, shape2, device="cpu").step(
         p2_cpu, {"tokens": toks2.cpu()})
@@ -1083,31 +1126,55 @@ def phase_serve() -> dict:
     out["prefill_launches"] = sum(r[2] for r in rows)
     out["prefill_idle_share"] = 1.0 - busy / out["prefill_ms"]
     out["prefill_top_kernels"] = [(n[:60], ms, c) for n, ms, c in rows[:5]]
-    # causal, S = T, no window: S (S + 1) / 2 visible (q, k) pairs per
-    # (batch, head), 2 D + 2 Dv FLOPs each
-    fl = PREFILL_BATCH * cfg.n_heads * PREFILL_SEQ * (PREFILL_SEQ + 1) // 2 \
-        * 2 * (q.shape[-1] + v.shape[-1])
+    # B6's instances: bf16 (tensor cores) at the 32k layer, the main path;
+    # float32 (SIMT) at the check prefill's layer
+    out["b6"] = {
+        "bfloat16": time_b6(q, k, v, kw, BF16_OPS_PER_S, out["launches"],
+                            iters=3, graph=dict(launches=5, replays=2)),
+        "float32": time_b6(q32, k32, v32, kw32, FP32_OPS_PER_S,
+                           out["check_launches"], iters=10,
+                           graph=dict(launches=10, replays=3))}
+    out["b6_share_of_prefill"] = (out["b6"]["bfloat16"]["device_ms"]
+                                  * cfg.n_layers / out["prefill_ms"])
+    log(f"[serve timing] B6 bf16 at the 32k layer: "
+        f"{out['b6']['bfloat16']['device_ms']:.3f} ms on the device, "
+        f"{out['b6']['bfloat16']['tflops']:.1f} TFLOP/s on the reference "
+        f"FLOPs ({out['b6']['bfloat16']['library_ms']:.3f} ms SDPA)")
+    log("[serve timing] " + json.dumps(out))
+    return out
+
+
+def time_b6(q, k, v, kw, ops_per_s: float, launches: int, iters: int,
+            graph: dict) -> dict:
+    """B6 at one layer's causal operands (S = T, no window): call and
+    device ms, its plain version's and SDPA's ms, its bound (operations at
+    ``ops_per_s``, the peak for the operands' type, or bytes) and its
+    achieved TFLOP/s on the reference FLOPs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, d = q.shape
+    hk, dv = k.shape[2], v.shape[3]
+    check(kw.get("causal", True) and not kw.get("window", 0)
+          and k.shape[1] == s, f"B6 timed at a causal S = T layer, got {kw}")
+    # S (S + 1) / 2 visible (q, k) pairs per (batch, head), 2 D + 2 Dv
+    # FLOPs each
+    fl = b * h * s * (s + 1) // 2 * 2 * (d + dv)
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = fl / BF16_OPS_PER_S * 1e3
-    b6 = dict(ms=cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), iters=3,
-                         warmup=1),
-              device_ms=graph_ms(lambda: fa.flash_attention(q, k, v, **kw),
-                                 launches=3, replays=1),
-              plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
-                               iters=1, warmup=1),
-              bound_ms=max(t_bytes, t_ops),
-              bound_by="operations" if t_ops >= t_bytes else "bytes",
-              bound_f32_simt_ms=fl / FP32_OPS_PER_S * 1e3, flops=fl,
-              bytes=nbytes, shape=[PREFILL_BATCH, PREFILL_SEQ, cfg.n_heads,
-                                   cfg.n_kv_heads, cfg.head_dim,
-                                   cfg.head_dim])
+    t_ops = fl / ops_per_s * 1e3
+    run = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+    out = dict(launches=launches, dtype=str(q.dtype).removeprefix("torch."),
+               ms=cuda_ms(run, iters=iters, warmup=1),
+               device_ms=graph_ms(run, **graph),
+               plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                                iters=1, warmup=1),
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               flops=fl, bytes=nbytes, shape=[b, s, h, hk, d, dv])
+    out["tflops"] = fl / out["device_ms"] / 1e9
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    b6["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+    out["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
-    out["b6"] = b6
-    out["b6_share_of_prefill"] = b6["device_ms"] * cfg.n_layers / out["prefill_ms"]
-    log("[serve timing] " + json.dumps(out))
     return out
 
 
@@ -1131,6 +1198,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_card()
     build_s = phase_build()
+    hgmma = hgmma_count()
     parity_err = phase_parity()
     parity_err.update(phase_wire_parity())
     flash_err = phase_flash_parity()
@@ -1184,19 +1252,28 @@ def main() -> int:
                                   ("gather_quant_fl", fl))]
         kernels.append(entry)
     b6 = serve["b6"]
+    instance_keys = ("launches", "ms", "device_ms", "plain_ms", "bound_ms",
+                     "bound_by", "library_ms", "tflops", "shape")
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:32",
-        # the 32k prefill's launches, one per layer
+        # the main path is the bf16 instance: the 32k prefill's launches,
+        # one per layer, and its times at layer 0
         "launches": serve["launches"], "on_path": True,
         "max_abs_err": serve["layer_err_vs_plain"], "bitwise": False,
         "tolerance": {"abs": LAYER_TOL[0], "rel": LAYER_TOL[1]},
         "max_abs_err_small_shapes": flash_err,
         "tolerance_small_shapes": FLASH_TOL,
-        **{k: b6[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                              "bound_by", "bound_f32_simt_ms", "library_ms",
-                              "shape")}})
+        "hgmma_in_sass": hgmma,
+        **{k: b6["bfloat16"][k] for k in instance_keys if k != "launches"},
+        "instances": [
+            {"instance": "bfloat16, wgmma + TMA (tensor cores)",
+             "on": "the 32k prefill", **{k: b6["bfloat16"][k]
+                                         for k in instance_keys}},
+            {"instance": "float32, SIMT", "on": "the check prefill",
+             "max_abs_err": serve["check_layer_err_vs_plain"],
+             **{k: b6["float32"][k] for k in instance_keys}}]})
     serve = {k: v for k, v in serve.items() if k != "b6"}
     timed = ("gather_quant", "gather_quant_allreduce", "gather_quant_fl",
              "stoch_quant", "vote_pack", "pack", "unpack", "popcount_accum")

@@ -3,8 +3,9 @@
 Each ``.cu`` source becomes one shared library with a plain C interface,
 compiled by ``nvcc`` for Hopper (``sm_90a``) and loaded with ``ctypes``.
 Libraries go to ``build/repro_torch_kernels/`` at the repository root,
-named by a hash of the source and the flags, so a changed source is
-rebuilt and an unchanged one is loaded as it is.  A failed build raises;
+named by a hash of the source, the headers beside it and the flags, so a
+changed source or header is rebuilt and an unchanged one is loaded as it
+is.  A failed build raises;
 nothing falls back to the plain versions.
 
 Nothing is compiled at import: the first kernel launch builds its library,
@@ -70,8 +71,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, named by a hash of the source, every header of
+    ``csrc`` (a changed header rebuilds) and the flags."""
+    digest = hashlib.sha256()
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest = digest.hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 

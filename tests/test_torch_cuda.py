@@ -132,6 +132,8 @@ def _close(got, want, dtype):
     (1, 384, 384, 4, 4, 192, 128, True, 0),       # Dv != D (MLA's 192/128)
     (1, 300, 700, 4, 2, 64, 64, False, 0),        # causal off, T != S
     (1, 300, 700, 4, 2, 256, 256, False, 64),     # Gemma's head_dim
+    (1, 700, 300, 4, 2, 64, 64, False, 64),       # rows 363.. see no key
+    (1, 333, 333, 4, 2, 256, 256, True, 0),       # T ragged in 64-key tiles
 ])
 def test_flash_attention_matches_plain_on_card(cuda_device, dtype, b, s, t, h,
                                                hk, d, dv, causal, window):
@@ -160,3 +162,33 @@ def test_flash_attention_reads_strides_on_card(cuda_device):
     want = flash_attention.flash_attention_plain(q.contiguous(), k.contiguous(),
                                                  v.contiguous(), window=128)
     _close(got, want, torch.float32)
+
+
+def test_flash_attention_reads_strides_on_card_bf16(cuda_device):
+    # the bf16 kernel's TMA reads the same views: strides and base
+    # addresses 16-byte aligned
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    qkv = torch.randn(2, 600, 8, 3 * 64, device=cuda_device,
+                      generator=gen).bfloat16()
+    q, k, v = qkv[..., :64], qkv[:, :, :4, 64:128], qkv[:, :, 4:, 128:]
+    assert all(flash_attention.tma_layout_ok(x) for x in (q, k, v))
+    got = flash_attention.flash_attention(q, k, v, window=128)
+    want = flash_attention.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                                 v.contiguous(), window=128)
+    _close(got, want, torch.bfloat16)
+
+
+def test_flash_attention_bf16_misaligned_stride_raises(cuda_device):
+    # 68 bf16 columns: 136-byte rows, which TMA cannot address; the wrapper
+    # raises rather than copying or taking another path
+    q = torch.zeros(1, 256, 4, 68, dtype=torch.bfloat16,
+                    device=cuda_device)[..., :64]
+    k = torch.zeros(1, 256, 2, 64, dtype=torch.bfloat16, device=cuda_device)
+    fa = flash_attention.flash_attention
+    before = fa.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fa(q, k, k)
+    assert fa.launches == before
+    fa(q.float(), k.float(), k.float())      # float32 takes any strides
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1

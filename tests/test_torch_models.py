@@ -122,6 +122,27 @@ def test_flash_wrapper_on_cpu_launches_nothing_and_checks_inputs():
         FA.flash_attention(wide, wide, wide)
 
 
+def test_flash_tma_layout_rule():
+    # The bf16 kernel reads q, k, v with TMA: last stride 1, other strides
+    # and the base address 16-byte aligned.  On the CPU the wrapper takes
+    # the plain version whatever the layout.
+    qkv = torch.zeros(2, 40, 4, 3 * 64, dtype=torch.bfloat16)
+    assert FA.tma_layout_ok(qkv)
+    assert FA.tma_layout_ok(qkv[..., 64:128]) and FA.tma_layout_ok(qkv[:, :, :2])
+    assert FA.tma_layout_ok(torch.zeros(1, 8, 2, 36))         # f32: 144 B rows
+    odd = torch.zeros(2, 40, 4, 68, dtype=torch.bfloat16)[..., :64]
+    assert not FA.tma_layout_ok(odd)                          # 136-byte rows
+    assert not FA.tma_layout_ok(qkv[..., 1:65])               # base + 2 bytes
+    assert not FA.tma_layout_ok(qkv.transpose(2, 3))          # last stride 4
+    assert not FA.tma_layout_ok(qkv[:, :1].expand(2, 40, 4, 192))   # stride 0
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv(1, 64, 4, 2, 64, 0))
+    view = torch.zeros(1, 64, 4, 68, dtype=torch.bfloat16)[..., :64]
+    view.copy_(q)
+    got = FA.flash_attention(view, k, v)
+    torch.testing.assert_close(got, FA.flash_attention_plain(q, k, v),
+                               atol=0, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # layers and attention
 # ---------------------------------------------------------------------------
