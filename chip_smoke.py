@@ -25,7 +25,16 @@ Phases, each of which raises (and exits non-zero) on failure:
    (plain versions) from the card's vote counts, bitwise, and the vote
    counts of a whole CPU round against the card's; the FL loop against
    its CPU run;
-6. allreduce path: 8 ranks on the one card over gloo (spawned once), each
+6. comparison path (the paper's Sec. V): the five baselines through
+   ``make_aggregator`` at N = 32, d = 1,000,000 (libra two rounds), FediAC
+   with the trim and median closes at vote_chunk 1 and 4, the FL loop for
+   each of the six aggregators, and fediac and libra killed at round 2
+   and resumed, with the launch counts zeroed just before and read just
+   after; then each against the CPU: the baselines and the closes
+   bitwise, every FL round's aggregate replayed bitwise, the FL runs
+   within their gates and in the paper's traffic order, the resumed runs
+   bit-identical; then each round's time;
+7. allreduce path: 8 ranks on the one card over gloo (spawned once), each
    one client of ``fediac_allreduce`` at d = 12,500,992 (one device's
    slice of the reference's d ~ 1e8 sort-free scale cell) on the packed
    wire, threshold/block (``vote_pack`` + ``popcount``) and topk/topk
@@ -33,13 +42,13 @@ Phases, each of which raises (and exits non-zero) on failure:
    residuals, with each rank's launch counts zeroed just before and read
    just after; gates on every rank; then both configs at d = 1,000,000 on
    the card and on the CPU, bitwise; then round and collective times;
-7. timing: each kernel, its plain version and its memory bound at the main
+8. timing: each kernel, its plain version and its memory bound at the main
    paths' shapes (``gather_quant`` at both of its shapes), and whole
    rounds.  A kernel's ``ms`` is CUDA-event time per wrapper call (it
    includes the host's launch work whenever that is slower than the
    kernel); ``device_ms`` is the kernel alone, per launch of a replayed
    CUDA graph of back-to-back calls;
-8. serve path: Qwen3-0.6B at full width and depth (28 layers, random
+9. serve path: Qwen3-0.6B at full width and depth (28 layers, random
    weights from ``PRNGKey(0)``) prefills 2 requests of 32,768 tokens
    through ``make_serve_step`` (the counts zeroed just before; B6's bf16
    tensor-core instance must launch once per layer), its logits finite;
@@ -47,7 +56,8 @@ Phases, each of which raises (and exits non-zero) on failure:
    plus 2e-3) and against the model's plain ``_blockwise_attention``
    (2e-2) at layer 0's q, k, v; the 2-layer model at S = 4,096 in float32
    on the card (B6's float32 SIMT instance, once per layer, held to its
-   plain version at layer 0) against the CPU;
+   plain version at layer 0) against the CPU, and the same in bfloat16
+   (B6's bf16 instance) within 2e-2 of the largest logit;
    ``ServingEngine`` answering 4 requests on 2 slots, each request's
    tokens equal to its own greedy decode (float32); a bfloat16 engine of
    16 slots with a 32,768-token cache (``DECODE_32K``'s cache, its batch
@@ -123,6 +133,9 @@ LAYER_TOL = (2e-3, 2.0 ** -7)
 #: card (B6) vs CPU (plain) prefill at 2 layers, float32, relative to the
 #: largest logit: about 3x the reading of every run so far (3.0e-6)
 CHECK_TOL = 1e-5
+#: the same check in bfloat16 (B6's bf16 instance): the CPU tests' bf16
+#: tolerance (tests/test_torch_models.py), relative to the largest logit
+CHECK_TOL_BF16 = 2e-2
 
 
 def log(msg: str) -> None:
@@ -498,6 +511,331 @@ def phase_checks(u_stack, key, main) -> dict:
         f"{acc_gap:.3g}, loss gap {loss_gap:.3g}")
     report.update(fl_acc=hist.acc, fl_acc_gap=acc_gap, fl_loss_gap=loss_gap)
     return report
+
+
+# ---------------------------------------------------------------------------
+# The comparison path: the paper's baselines, the robust closes, the FL
+# loop per aggregator, and kill-and-resume
+# ---------------------------------------------------------------------------
+
+#: the five baselines of paper Sec. V-A3 at the stacked round's scale
+BASELINES = ("fedavg", "switchml", "topk", "omnireduce", "libra")
+#: the robust closes of the FediAC round (robust_agg, trim_frac)
+ROBUST_CLOSES = (("trim", 0.1), ("median", 0.0))
+#: the aggregators of the FL comparison with the arguments the reference's
+#: tests/test_fl_system.py::test_fediac_traffic_beats_baselines gives them
+FL_AGGREGATORS = ("fediac", "switchml", "fedavg", "topk", "omnireduce",
+                  "libra")
+RESUME_AGGREGATORS, RESUME_KILL_ROUND = ("fediac", "libra"), 2
+#: the FL loop, card vs CPU: acc and loss within FL_TOL (the FL check's
+#: gate of phase_checks) of a CPU run that aggregates the card run's own
+#: per-round inputs (each round's key, state and result held bitwise on
+#: the way), so that the two devices' local SGD starts every round from
+#: the same model; and of an independent CPU run, but for SwitchML's loss
+#: there, which is printed: its stochastic rounding of all d coordinates
+#: turns the devices' float32 differences in local SGD into whole
+#: quantization steps on a few coordinates (PERF.md section 6).
+FL_TOL = 1e-5
+
+
+def _fl_agg_kwargs(name):
+    from repro_torch.core.fediac import FediACConfig
+    if name == "fediac":
+        return {"cfg": FediACConfig(a=2, bits=12)}
+    return {"bits": 12} if name == "switchml" else {}
+
+
+def _fl_compare_cfg(name, **extra):
+    """The default FL setup (kernels on, so fediac launches B1) with
+    aggregator ``name``."""
+    import dataclasses
+    _, _, flcfg = _fl_setup()
+    return dataclasses.replace(flcfg, aggregator=name,
+                               agg_kwargs=_fl_agg_kwargs(name), **extra)
+
+
+def _robust_cfg(close, frac, g):
+    import dataclasses
+    return dataclasses.replace(_round_cfg(g), robust_agg=close,
+                               trim_frac=frac)
+
+
+def _baseline_keys(key):
+    from repro_torch.core import prng
+    return [prng.fold_in(key, 100 + r) for r in range(2)]
+
+
+def _run_baseline(name, u, keys):
+    """One baseline through ``make_aggregator``: one round, or two for
+    libra so that its heat state is carried.  Returns the rounds' outputs."""
+    from repro_torch.core.baselines import make_aggregator
+    agg = make_aggregator(name)
+    state, outs = None, []
+    for r in range(2 if name == "libra" else 1):
+        out = agg(u, state, keys[r].to(u.device))
+        state = out[2]
+        outs.append(out)
+    return outs
+
+
+class _Recorder:
+    """The FL loop's round transport (``run_federated``'s
+    ``wrap_transport``), recording what it is given each round and what it
+    returns."""
+
+    def __init__(self):
+        self.inner, self.rounds = None, []
+
+    def wrap(self, inner):
+        self.inner = inner
+        return self
+
+    def round(self, u, state, key, t=0):
+        res = self.inner.round(u, state, key, t)
+        self.rounds.append((u, state, key, res))
+        return res
+
+
+class _CardInputs:
+    """A CPU run's round transport that aggregates the card run's recorded
+    update stack of each round in place of its own, and holds the round's
+    key, state and result bitwise against the card's."""
+
+    def __init__(self, inner, name, rounds):
+        self.inner, self.name, self.rounds = inner, name, rounds
+
+    def round(self, u, state, key, t=0):
+        card_u, card_state, card_key, card = self.rounds[t - 1]
+        where = f"FL {self.name} round {t}"
+        check(same_bits(key, card_key) and (
+            (state is None and card_state is None)
+            or same_bits(state, card_state)),
+              f"{where}: the CPU's key / state != the card's")
+        res = self.inner.round(card_u.cpu(), state, key, t)
+        check(same_bits(res.delta, card.delta)
+              and same_bits(res.residuals, card.residuals)
+              and (res.state is None or same_bits(res.state, card.state))
+              and res.traffic == card.traffic and res.load == card.load
+              and res.n_active == card.n_active,
+              f"{where}: the card's aggregate != the CPU's on the same "
+              "inputs")
+        return res
+
+
+def _same_history(a, b) -> bool:
+    return (a.acc == b.acc and a.loss == b.loss and a.wall_clock == b.wall_clock
+            and a.traffic_mb == b.traffic_mb)
+
+
+def phase_compare(u_stack, key) -> dict:
+    """The paper's comparison on the card: the five baselines and the trim
+    and median rounds at the stacked round's scale, the FL loop for each
+    of the six aggregators, and kill-and-resume, with the launch counts
+    zeroed just before and read just after; then each against the CPU,
+    and their times."""
+    import torch
+    from repro_torch.core import fediac
+    from repro_torch.core.baselines import make_aggregator
+    from repro_torch.kernels.gather_quant import gather_quant
+    from repro_torch.kernels.stoch_quant import stoch_quant
+    from repro_torch.training.fl_loop import run_federated
+    clients, test, _ = _fl_setup()
+    keys = _baseline_keys(key)
+    out = {}
+
+    # -- the comparison path on the card
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    base = {}
+    for name in BASELINES:
+        base[name] = _run_baseline(name, u_stack, keys)
+        torch.cuda.synchronize()
+    robust = {}
+    for close, frac in ROBUST_CLOSES:
+        for g in (1, 4):
+            before = (gather_quant.launches, stoch_quant.launches)
+            robust[close, g] = fediac.aggregate_round(
+                u_stack, _robust_cfg(close, frac, g), key)
+            torch.cuda.synchronize()
+            rose = (gather_quant.launches - before[0],
+                    stoch_quant.launches - before[1])
+            check(rose == ((1, 0) if g == 1 else (0, 1)),
+                  f"{close} round g={g} launched (gather_quant, stoch_quant) "
+                  f"{rose}")
+    hists, fl_ms, recorded = {}, {}, {}
+    for name in FL_AGGREGATORS:
+        flcfg = _fl_compare_cfg(name)
+        t0 = time.perf_counter()
+        hists[name] = run_federated(clients, test, flcfg, device=DEV)
+        torch.cuda.synchronize()
+        fl_ms[name] = (time.perf_counter() - t0) * 1e3 / flcfg.rounds
+        rec = _Recorder()
+        again = run_federated(clients, test, flcfg, device=DEV,
+                              wrap_transport=rec.wrap)
+        check(_same_history(again, hists[name]),
+              f"FL {name}: the recorded card run != the timed one")
+        recorded[name] = rec.rounds
+    resumed = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as td:
+        for name in RESUME_AGGREGATORS:
+            path = str(Path(td) / f"{name}.npz")
+            killed = run_federated(clients, test, _fl_compare_cfg(
+                name, rounds=RESUME_KILL_ROUND, ckpt_path=path), device=DEV)
+            check(len(killed) == RESUME_KILL_ROUND, f"{name}: killed run has "
+                  f"{len(killed)} rounds")
+            resumed[name] = run_federated(clients, test, _fl_compare_cfg(
+                name, ckpt_path=path, resume=True), device=DEV)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    fl_rounds = _fl_setup()[2].rounds
+    # the timed run, the recorded run, then kill + resume
+    n_fediac_fl = 3 * fl_rounds
+    want = {k: 0 for k in launches}
+    want["gather_quant"] = len(ROBUST_CLOSES) + n_fediac_fl
+    want["stoch_quant"] = len(ROBUST_CLOSES)
+    check(launches == want, f"comparison path launches {launches}, not {want}")
+    out["launches"] = launches
+    out["robust_round_launches"] = len(ROBUST_CLOSES)
+    log(f"[compare] launches {launches}")
+
+    # -- the baselines, card vs CPU: everything bitwise (both devices add
+    # the client axis in client order)
+    u_cpu, key_cpu = u_stack.cpu(), key.cpu()
+    out["baselines"] = {}
+    for name in BASELINES:
+        t0 = time.perf_counter()
+        cpu = _run_baseline(name, u_cpu, keys)
+        for r, (card_r, cpu_r) in enumerate(zip(base[name], cpu)):
+            delta, res, state, traffic, load = card_r
+            where = f"{name} round {r}"
+            check(delta.shape == (D,) and res.shape == (N_CLIENTS, D)
+                  and bool(torch.isfinite(delta).all()),
+                  f"{where}: delta {tuple(delta.shape)} not finite / shaped")
+            check(same_bits(delta, cpu_r[0]) and same_bits(res, cpu_r[1]),
+                  f"{where}: card delta / residuals != CPU")
+            check((state is None and cpu_r[2] is None)
+                  or same_bits(state, cpu_r[2]),
+                  f"{where}: card state != CPU")
+            check(traffic == cpu_r[3] and load == cpu_r[4],
+                  f"{where}: traffic {traffic} / load {load} != CPU "
+                  f"{cpu_r[3]} / {cpu_r[4]}")
+        # the uploaded coordinates (u != residual) of every client
+        uploaded = int((res != u_stack).sum())
+        out["baselines"][name] = {
+            "rounds": len(cpu), "uploaded": uploaded,
+            "mb_per_client": traffic.total_bytes / 1e6,
+            "slot_adds": load.slot_adds, "aligned": load.aligned,
+            "cpu_s": time.perf_counter() - t0}
+        log(f"[compare] {name}: card == CPU bitwise (delta, residuals, "
+            f"state, traffic, load) over {len(cpu)} round(s); {uploaded} "
+            f"coordinates uploaded ({out['baselines'][name]['cpu_s']:.1f} s "
+            f"on the CPU)")
+    del base, cpu
+
+    # -- the robust closes: phase 2 and the close on the CPU from the
+    # card's vote counts, bitwise
+    for (close, g), (delta, res, counts, _) in robust.items():
+        cfg = _robust_cfg(close, dict(ROBUST_CLOSES)[close], g)
+        check(delta.shape == (D,) and bool(torch.isfinite(delta).all()
+                                           and torch.isfinite(res).all()),
+              f"{close} g={g}: outputs not finite / shaped")
+        check(int(counts.sum()) == N_CLIENTS * cfg.k(D // g),
+              f"{close} g={g}: counts sum {int(counts.sum())}")
+        t0 = time.perf_counter()
+        d_cpu, r_cpu = fediac.aggregate_from_counts(u_cpu, cfg, key_cpu,
+                                                    counts.cpu())
+        check(same_bits(delta, d_cpu) and same_bits(res, r_cpu),
+              f"{close} g={g}: card phase 2 + close != CPU from the card's "
+              "counts")
+        log(f"[compare] {close} g={g}: phase 2 + close bitwise card == CPU "
+            f"({time.perf_counter() - t0:.1f} s on the CPU)")
+    del robust
+
+    # -- the FL loop per aggregator, card vs CPU, and the paper's order
+    out["fl"] = {}
+    for name in FL_AGGREGATORS:
+        h, rounds = hists[name], recorded.pop(name)
+        check(len(rounds) == len(h), f"FL {name}: {len(rounds)} rounds "
+              "recorded")
+        check(all(math.isfinite(x) for x in h.loss), f"FL {name}: loss")
+        cfg = _fl_compare_cfg(name)
+        h_pin = run_federated(
+            clients, test, cfg, device="cpu",
+            wrap_transport=lambda tr: _CardInputs(tr, name, rounds))
+        h_cpu = run_federated(clients, test, cfg, device="cpu")
+        gaps = {}
+        for run, hc in (("pinned", h_pin), ("independent", h_cpu)):
+            check(h.traffic_mb == hc.traffic_mb
+                  and h.wall_clock == hc.wall_clock,
+                  f"FL {name}: traffic / wall-clock differ card vs CPU "
+                  f"({run} run)")
+            gaps[run] = (max(abs(a - b) for a, b in zip(h.acc, hc.acc)),
+                         max(abs(a - b) for a, b in zip(h.loss, hc.loss)))
+        gated = [gaps["pinned"][0], gaps["pinned"][1], gaps["independent"][0]]
+        if name != "switchml":
+            gated.append(gaps["independent"][1])
+        check(max(gated) <= FL_TOL,
+              f"FL {name} card vs CPU: (acc, loss) gaps {gaps}, "
+              f"tolerance {FL_TOL}")
+        out["fl"][name] = {"acc": h.acc[-1], "traffic_mb": h.traffic_mb[-1],
+                           "wall_clock_s": h.wall_clock[-1],
+                           "acc_gap": gaps["independent"][0],
+                           "loss_gap": gaps["independent"][1],
+                           "acc_gap_pinned": gaps["pinned"][0],
+                           "loss_gap_pinned": gaps["pinned"][1],
+                           "replayed_rounds": len(rounds),
+                           "round_ms": fl_ms[name]}
+    mb = {k: v["traffic_mb"] for k, v in out["fl"].items()}
+    check(mb["fediac"] < mb["switchml"] < mb["fedavg"],
+          f"FL traffic order fediac < switchml < fedavg broken: {mb}")
+    line = ("[compare] FL, " + f"{fl_rounds} rounds; CPU run on the card's "
+            "per-round inputs: every aggregate bitwise, acc and loss within "
+            f"{FL_TOL}; independent CPU run: acc within {FL_TOL}, loss within "
+            f"{FL_TOL} (switchml's loss gap "
+            f"{out['fl']['switchml']['loss_gap']:.3g}, printed); both: "
+            "traffic, wall-clock exact; final acc / "
+            "cumulative MB / simulated wall-clock s: " + "; ".join(
+                f"{k} {v['acc']:.4f} / {v['traffic_mb']:.3f} / "
+                f"{v['wall_clock_s']:.3f}" for k, v in out["fl"].items()))
+    log(line)
+    print(line, flush=True)
+
+    # -- kill and resume on the card: bit-identical histories
+    for name, h in resumed.items():
+        check(_same_history(h, hists[name]),
+              f"{name}: resumed history != the uninterrupted card run")
+    out["resume_bit_identical"] = list(resumed)
+    log(f"[compare] kill at round {RESUME_KILL_ROUND} and resume: "
+        f"{list(resumed)} bit-identical to the uninterrupted card runs")
+
+    # -- times at N_CLIENTS x D: each baseline's round, and the robust
+    # closes beside the sum round
+    times = {}
+    for name in BASELINES:
+        agg = make_aggregator(name)
+        state = None
+        if name == "libra":     # a carried-state round, as round 2 runs
+            state = agg(u_stack, None, keys[0])[2]
+        times[name] = wall_ms(lambda: agg(u_stack, state, keys[1]))
+    for g in (1, 4):
+        for close, frac in (("sum", 0.0),) + ROBUST_CLOSES:
+            cfg = _robust_cfg(close, frac, g)
+            times[f"fediac_{close}_g{g}"] = wall_ms(
+                lambda: fediac.aggregate_round(u_stack, cfg, key))
+    slowest = max(BASELINES, key=times.get)
+    agg = make_aggregator(slowest)
+    rows = device_profile(lambda: agg(u_stack, None, keys[0]))
+    busy = sum(r[1] for r in rows)
+    out["round_ms"] = times
+    out["slowest_baseline"] = {
+        "name": slowest, "round_ms": times[slowest], "device_ms": busy,
+        "idle_share": 1.0 - busy / times[slowest] if rows else None,
+        "top_kernels": [(n[:60], ms, c) for n, ms, c in rows[:5]]}
+    log("[compare timing] " + json.dumps({"round_ms": times,
+                                          "fl_round_ms": fl_ms,
+                                          "slowest": out["slowest_baseline"]}))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1042,6 +1380,34 @@ def phase_serve() -> dict:
           f"card vs CPU prefill: rel err {rel}, same argmax {same_argmax}")
     log(f"[serve] card vs CPU, {CHECK_LAYERS} layers, S={CHECK_SEQ}, f32: rel "
         f"err {rel:.3g}, same argmax ({out['check_cpu_s']:.1f} s on the CPU)")
+
+    # -- the same check in bfloat16: B6's bf16 instance on the card against
+    # the CPU's plain path, the same (float32) parameters
+    cfg2b = cfg.with_(n_layers=CHECK_LAYERS)
+    before = fa.flash_attention.launches
+    lgb, _, dtypes = capture_layer0(
+        lambda: make_serve_step(cfg2b, shape2).step(p2, {"tokens": toks2}))
+    torch.cuda.synchronize()
+    out["check_bf16_launches"] = fa.flash_attention.launches - before
+    check(out["check_bf16_launches"] == CHECK_LAYERS
+          and dtypes == ["bfloat16"] * CHECK_LAYERS,
+          "the bf16 card check prefill did not launch B6's bf16 instance "
+          f"once per layer ({dtypes})")
+    t0 = time.perf_counter()
+    lcb = make_serve_step(cfg2b, shape2, device="cpu").step(
+        p2_cpu, {"tokens": toks2.cpu()})
+    out["check_bf16_cpu_s"] = time.perf_counter() - t0
+    a, b = lgb.float().cpu(), lcb.float()
+    rel = float((a - b).abs().max() / b.abs().max())
+    out["check_bf16_rel_err"] = rel
+    out["check_bf16_same_argmax"] = bool(torch.equal(a.argmax(-1),
+                                                     b.argmax(-1)))
+    check(rel <= CHECK_TOL_BF16, f"card vs CPU bf16 prefill: rel err {rel} > "
+          f"{CHECK_TOL_BF16}")
+    log(f"[serve] card vs CPU, {CHECK_LAYERS} layers, S={CHECK_SEQ}, bf16: "
+        f"rel err {rel:.3g} (tolerance {CHECK_TOL_BF16}), same argmax "
+        f"{out['check_bf16_same_argmax']} ({out['check_bf16_cpu_s']:.1f} s "
+        "on the CPU)")
     del p2, p2_cpu
 
     # -- decode engine at full width, float32: every request answered and
@@ -1208,6 +1574,7 @@ def main() -> int:
     key = prng.PRNGKey(0, device=DEV)
     main_path = phase_main_path(u_stack, key)
     report = phase_checks(u_stack, key, main_path)
+    compare = phase_compare(u_stack, key)
     allreduce = phase_allreduce()
     timing = phase_timing(u_stack, key)
     timing.update(phase_wire_timing())
@@ -1226,9 +1593,11 @@ def main() -> int:
              "src/repro/kernels/vote_popcount.py:34")):
         t = timing[name]
         # launches on the paths this script drives: the stacked round and
-        # FL loop (counted in this process) plus the allreduce (summed over
-        # its ranks); unpack is on no path (no round calls it)
+        # FL loop, and the comparison path (counted in this process), plus
+        # the allreduce (summed over its ranks); unpack is on no path (no
+        # round calls it)
         launches = (main_path["launches"].get(name, 0)
+                    + compare["launches"][name]
                     + allreduce["launches"][name])
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches,
@@ -1238,11 +1607,13 @@ def main() -> int:
                                       "bound_ms", "bound_by")},
                  "library_ms": None, "shape": t["shape"]}
         if name == "gather_quant":
-            # the stacked rounds launch it at [N_CLIENTS, D]; the FL loop
-            # and the allreduce's topk config at shapes of their own
-            fl = launches - main_path["round_launches"] \
-                - allreduce["launches"][name]
-            entry["launches_at_shape"] = main_path["round_launches"]
+            # the stacked rounds (the sum close, then the trim and median
+            # closes) launch it at [N_CLIENTS, D]; the FL loops and the
+            # allreduce's topk config at shapes of their own
+            at_shape = (main_path["round_launches"]
+                        + compare["robust_round_launches"])
+            fl = launches - at_shape - allreduce["launches"][name]
+            entry["launches_at_shape"] = at_shape
             entry["also_at"] = [
                 {"launches": n_at, **{k: timing[key][k] for k in (
                     "shape", "ms", "device_ms", "plain_ms", "bound_ms",
@@ -1278,7 +1649,8 @@ def main() -> int:
     timed = ("gather_quant", "gather_quant_allreduce", "gather_quant_fl",
              "stoch_quant", "vote_pack", "pack", "unpack", "popcount_accum")
     summary = {"build_s": build_s, "total_s": time.perf_counter() - t_start,
-               **report, "allreduce": allreduce, "serve": serve,
+               **report, "compare": compare, "allreduce": allreduce,
+               "serve": serve,
                **{k: v for k, v in timing.items() if k not in timed}}
     log("[summary] " + json.dumps(summary))
     print(json.dumps({"summary": summary}))

@@ -1,12 +1,27 @@
-"""Core FediAC algorithm of the port: voting, consensus plan, quantization
-and the stacked round (:func:`repro_torch.core.fediac.aggregate_stack`)."""
+"""Core FediAC algorithm of the port: voting, consensus plan, quantization,
+the stacked round (:func:`repro_torch.core.fediac.aggregate_stack`), the
+allreduce, the baselines the paper compares, and the seed-revision oracle.
+The reference's ``aggregate_shard`` (the sharded engine) is not ported yet
+(ROADMAP A8)."""
 
 from . import engines
+from .baselines import make_aggregator
 from .engines import EngineSpec
-from .fediac import (FediACConfig, TrafficStats, aggregate_round,
-                     aggregate_stack, round_traffic)
-from .round_plan import RoundPlan, build_round_plan
+from .fediac import (FediACConfig, RoundPlan, TrafficStats, aggregate_round,
+                     aggregate_stack, build_round_plan, dense_allreduce,
+                     fediac_allreduce, round_traffic)
+from .powerlaw import (PowerLawFit, expected_uploaded, fit_power_law,
+                       gamma_compression_error, min_bits, scale_factor)
+from .quantize import dequantize, quantize, stochastic_round
+from .seed_ref import aggregate_stack_seed
+from .voting import gia_from_counts, vote_mask
 
-__all__ = ["EngineSpec", "FediACConfig", "RoundPlan", "TrafficStats",
-           "aggregate_round", "aggregate_stack", "build_round_plan",
-           "engines", "round_traffic"]
+__all__ = [
+    "EngineSpec", "FediACConfig", "TrafficStats", "aggregate_round",
+    "aggregate_stack", "fediac_allreduce", "dense_allreduce", "RoundPlan",
+    "build_round_plan", "aggregate_stack_seed", "PowerLawFit",
+    "fit_power_law", "gamma_compression_error", "expected_uploaded",
+    "min_bits", "scale_factor", "quantize", "dequantize", "stochastic_round",
+    "vote_mask", "gia_from_counts", "make_aggregator", "engines",
+    "round_traffic",
+]

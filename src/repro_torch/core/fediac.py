@@ -19,8 +19,10 @@ the same inputs and key:
 
 Ported: both vote modes (``topk``, sort-free ``threshold``), both compact
 modes (``topk``, sort-free ``block``), any ``vote_chunk``, the fused
-kernels on and off, both vote wires, ``robust_agg="sum"``.  The robust
-closes raise ``NotImplementedError`` naming their ROADMAP item.
+kernels on and off, both vote wires, and the three client-axis closes of
+:mod:`.robust_agg` (``sum``, ``trim``, ``median``) in the stacked round.
+The allreduce sums on the wire, so it takes ``robust_agg="sum"`` only, as
+the reference's does.
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ class FediACConfig:
     engine: "str | engines.EngineSpec" = "monolithic"  # name or EngineSpec
     consensus_floor: int = 0      # dense-mask fallback floor (0 = off)
     robust_agg: str = "sum"       # sum | trim | median
+    trim_frac: float = 0.0        # per-side trim fraction of robust_agg="trim"
 
     def __post_init__(self):
         check_interval("k_frac", self.k_frac, 0.0, 1.0, lo_open=True)
@@ -91,6 +94,7 @@ class FediACConfig:
         check_choice("vote_wire", self.vote_wire, ("count", "packed"))
         check_choice("work_dtype", self.work_dtype, tuple(WORK_DTYPES))
         check_choice("robust_agg", self.robust_agg, robust_agg.ROBUST_AGG_MODES)
+        check_interval("trim_frac", self.trim_frac, 0.0, 0.5, hi_open=True)
         engines.get(self.engine)   # registered name or EngineSpec
 
     @property
@@ -138,13 +142,6 @@ def round_traffic(cfg: FediACConfig, d: int) -> TrafficStats:
     phase2 = c * max(1, math.ceil(cfg.bits / 8))
     return TrafficStats(phase1_bytes=int(vote_bytes), phase2_bytes=int(phase2),
                         dense_bytes=4 * d, selected=int(c))
-
-
-def _require_ported(cfg: FediACConfig) -> None:
-    if cfg.robust_agg != "sum":
-        raise NotImplementedError(
-            f"robust_agg={cfg.robust_agg!r} is not ported yet "
-            "(ROADMAP: robust_agg trim/median)")
 
 
 # ---------------------------------------------------------------------------
@@ -316,7 +313,6 @@ def aggregate_stack(u_stack: torch.Tensor, cfg: FediACConfig, key: torch.Tensor,
              residuals[N, d], counts[d//g], TrafficStats).
     ``a`` optionally overrides the vote threshold.
     """
-    _require_ported(cfg)
     n = u_stack.shape[0]
     # Phase 1: every client votes; the PS sums 0/1 arrays.
     counts = _vote_counts_stack(u_stack, cfg, prng.split(key, 2 * n)[:n])
@@ -329,7 +325,6 @@ def aggregate_from_counts(u_stack: torch.Tensor, cfg: FediACConfig,
     """The rest of :func:`aggregate_stack` after phase 1: scale factor,
     consensus plan, phase 2 and the aggregate, from given vote counts.
     Returns ``(delta, residuals)``."""
-    _require_ported(cfg)
     n, d = u_stack.shape
     q_keys = prng.split(key, 2 * n)[n:]
     # Scale factor from the global max magnitude (SwitchML-style).  The
@@ -354,7 +349,7 @@ def aggregate_from_counts(u_stack: torch.Tensor, cfg: FediACConfig,
                  / (kept * f))
         return delta, residuals
     q_bufs, residuals = phase2_compress(cfg)(u_stack, cfg, f, q_keys, plan)
-    # the PS's pipelined integer addition
+    # the PS's pipelined integer addition, or its trim / median close
     summed, kept = robust_agg.client_sum(q_bufs, cfg)
     delta = (scatter_sum(summed, plan.idx, plan.keep, cfg, d).to(torch.float32)
              / (kept * f))

@@ -1,9 +1,10 @@
 """The Transport abstraction: how a round's bytes reach the aggregate.
 
-Only :class:`InMemoryTransport` is ported: it calls the aggregator
-directly and reports no simulated time, so the FL loop prices the round
-with the analytic ``round_wall_clock`` model.  The packet dataplane is
-queued in ROADMAP.
+Only :class:`InMemoryTransport` is ported: it calls any of the six
+aggregators of :mod:`repro_torch.core.baselines` directly and reports no
+simulated time, so the FL loop prices the round with the analytic
+``round_wall_clock`` model.  The packet dataplane is not ported yet
+(ROADMAP A9).
 """
 
 from __future__ import annotations

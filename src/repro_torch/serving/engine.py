@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.pytree import tree_leaves
 from repro_torch.models.model import decode_step, init_caches
 from repro_torch.serving.admission import AdmissionQueue
 
@@ -42,14 +43,6 @@ class Request:
         if self.eos is not None and self.eos in self.out:
             return True
         return len(self.out) >= self.max_new
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 class ServingEngine:
@@ -83,7 +76,7 @@ class ServingEngine:
         # reset the slot's cache rows (axis 1 of every stacked leaf):
         # attention rows are position-masked anyway, but recurrent state
         # carries no positions and must be zeroed on recycle
-        for c in _leaves(self.caches):
+        for c in tree_leaves(self.caches):
             c[:, i].zero_()
 
     def _admit(self) -> None:

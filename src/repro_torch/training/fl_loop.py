@@ -13,12 +13,15 @@ b``) and its flat order: ``ravel_pytree`` sorts each layer's dict keys, so
 the flat vector is ``[b0, w0, b1, w1, ...]``.  The error-feedback stack,
 the update stack and the aggregated delta all index that vector.
 
-Ported: the in-memory transport and the FediAC aggregator.  Checkpointing,
-probes and the packet transport raise ``NotImplementedError``.
+Ported: the in-memory transport with all six aggregators of
+:mod:`repro_torch.core.baselines`, and round-granular checkpointing with
+bit-exact resume (``ckpt_path``, ``ckpt_every``, ``resume``).  Probes and
+the packet transport raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field, replace
 
 import numpy as np
@@ -26,7 +29,9 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import load_run_state, save_run_state
 from repro_torch.core import engines, prng
+from repro_torch.core.pytree import tree_map
 from repro_torch.core.baselines import make_transport
 from repro_torch.core.fediac import FediACConfig
 from repro_torch.switch import (SwitchProfile, client_rates, n_packets,
@@ -142,9 +147,14 @@ def accuracy(model: MLP, x: torch.Tensor, y: torch.Tensor) -> float:
 class FLConfig:
     """One federated-learning experiment, named as in the reference.
 
-    Ported: ``transport="memory"`` with the FediAC aggregator.  A packet
-    transport, a checkpoint path or a resume request raises; their other
-    knobs come with them.
+    ``transport="memory"`` with any aggregator of
+    :mod:`repro_torch.core.baselines`; ``"packet"`` raises (its knobs come
+    with it).  Crash-safe recovery: with ``ckpt_path`` set, the loop's
+    inter-round state (model, error-feedback stack, PRNG key, aggregator
+    state, pricing accumulators, history) is saved atomically every
+    ``ckpt_every`` rounds and after the last; ``resume=True`` restores it
+    and continues.  A run killed at round k and resumed reproduces the
+    uninterrupted :class:`FLHistory` bit for bit.
     """
 
     n_clients: int = 20
@@ -161,7 +171,8 @@ class FLConfig:
     transport: str = "memory"      # "memory" | "packet"
     seed: int = 0
     ckpt_path: str | None = None   # round-granular run-state checkpoint file
-    resume: bool = False
+    ckpt_every: int = 1            # save every k completed rounds
+    resume: bool = False           # restore ckpt_path (if present), continue
 
     def __post_init__(self):
         check_at_least("n_clients", self.n_clients, 1)
@@ -172,6 +183,7 @@ class FLConfig:
         check_positive_finite("lr_tau", self.lr_tau)
         check_finite_at_least("local_train_s", self.local_train_s, 0.0)
         check_choice("transport", self.transport, ("memory", "packet"))
+        check_at_least("ckpt_every", self.ckpt_every, 1)
         if self.engine is not None:
             engines.get(self.engine)   # registered name or EngineSpec
 
@@ -192,8 +204,10 @@ class FLHistory:
 
     __slots__ = ("records",)
 
-    def __init__(self):
-        self.records: list[RoundRecord] = []
+    def __init__(self, acc=(), wall_clock=(), traffic_mb=(), loss=()):
+        self.records = [RoundRecord(a, w, m, l)
+                        for a, w, m, l in zip(acc, wall_clock, traffic_mb,
+                                              loss)]
 
     def append_round(self, *, acc: float, wall_clock: float,
                      traffic_mb: float, loss: float) -> RoundRecord:
@@ -219,6 +233,10 @@ class FLHistory:
 
     def __len__(self) -> int:
         return len(self.records)
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, FLHistory)
+                and self.records == other.records)
 
     def __repr__(self) -> str:
         return f"FLHistory({len(self.records)} rounds)"
@@ -278,13 +296,16 @@ def make_client_round(dims: tuple[int, ...], batch: int, local_steps: int):
 
 
 def run_federated(clients, test, flcfg: FLConfig, *, hidden=(128, 64),
-                  device=None, probe=None) -> FLHistory:
-    """Run the FL loop on ``device`` (the card unless told otherwise)."""
+                  device=None, probe=None, wrap_transport=None) -> FLHistory:
+    """Run the FL loop on ``device`` (the card unless told otherwise).
+
+    ``wrap_transport``, if given, is applied to the round transport the
+    loop builds from ``flcfg``, and the loop uses what it returns: an
+    object whose ``round(u_stack, state, key, t)`` gives the round's
+    result.  It lets a caller watch each round's aggregation, or run it
+    on inputs of its own."""
     if probe is not None:
         raise NotImplementedError("probes are not ported yet (ROADMAP A10)")
-    if flcfg.ckpt_path or flcfg.resume:
-        raise NotImplementedError("checkpointing is not ported yet "
-                                  "(ROADMAP A6: checkpointing)")
     device = resolve_device(device)
     rng = np.random.default_rng(flcfg.seed)
     dim = clients[0].x.shape[1]
@@ -308,6 +329,8 @@ def run_federated(clients, test, flcfg: FLConfig, *, hidden=(128, 64),
     rates = client_rates(n, flcfg.seed)
     transport = make_transport(flcfg.aggregator, transport=flcfg.transport,
                                **agg_kwargs)
+    if wrap_transport is not None:
+        transport = wrap_transport(transport)
     local_round = make_client_round(dims, flcfg.batch, flcfg.local_steps)
 
     e_stack = torch.zeros((n, d), dtype=torch.float32, device=device)
@@ -315,10 +338,23 @@ def run_federated(clients, test, flcfg: FLConfig, *, hidden=(128, 64),
     hist = FLHistory()
     t_cum = 0.0
     mb_cum = 0.0
+    start_round = 0
+    if flcfg.resume and flcfg.ckpt_path and os.path.exists(flcfg.ckpt_path):
+        # the state saved after the last completed round; everything built
+        # above (data, rates, transport) is a pure function of the config
+        st = load_run_state(flcfg.ckpt_path)
+        flat = torch.from_numpy(st["flat"]).to(device)
+        e_stack = torch.from_numpy(st["e_stack"]).to(device)
+        key = torch.from_numpy(st["key"].astype(np.int64)).to(device)
+        agg_state = tree_map(lambda a: torch.from_numpy(a).to(device),
+                             st["agg_state"])
+        start_round = st["round"]
+        t_cum, mb_cum = st["t_cum"], st["mb_cum"]
+        hist = FLHistory(**st["history"])
     xt = torch.from_numpy(test.x).to(device)
     yt = torch.from_numpy(test.y).to(device)
 
-    for t in range(1, flcfg.rounds + 1):
+    for t in range(start_round + 1, flcfg.rounds + 1):
         lr = flcfg.lr0 / (1.0 + np.sqrt(t) / flcfg.lr_tau)
         key, k1, k2 = prng.split(key, 3)
         u_stack, losses = local_round(flat, k1, float(lr), cx, cy)
@@ -340,4 +376,9 @@ def run_federated(clients, test, flcfg: FLConfig, *, hidden=(128, 64),
         model.load_flat(flat)
         hist.append_round(acc=accuracy(model, xt, yt), wall_clock=t_cum,
                           traffic_mb=mb_cum, loss=float(losses.mean()))
+        if flcfg.ckpt_path and (t % flcfg.ckpt_every == 0
+                                or t == flcfg.rounds):
+            save_run_state(flcfg.ckpt_path, flat=flat, e_stack=e_stack,
+                           key=key, agg_state=agg_state, round_idx=t,
+                           t_cum=t_cum, mb_cum=mb_cum, history=hist)
     return hist

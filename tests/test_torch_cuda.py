@@ -111,6 +111,55 @@ def test_fl_loop_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(h_card.loss, h_cpu.loss, rtol=1e-4)
 
 
+@pytest.mark.parametrize("name", ["fedavg", "switchml", "topk",
+                                  "omnireduce", "libra"])
+def test_baseline_on_card_equals_cpu(cuda_device, name):
+    from repro_torch.core.baselines import make_aggregator
+    rng = np.random.default_rng(3)
+    u = (rng.standard_normal((8, 40_000)) ** 3).astype(np.float32)
+    u[:, ::5] = 0.0                          # exact zeros: top-k ties
+    u = torch.from_numpy(u)
+    agg = make_aggregator(name)
+    sc = sp = None
+    for r in range(2):                       # libra carries its state
+        on_card = agg(u.to(cuda_device), sc, prng.PRNGKey(r, cuda_device))
+        on_cpu = agg(u, sp, prng.PRNGKey(r, "cpu"))
+        sc, sp = on_card[2], on_cpu[2]
+        assert _same(on_card[0], on_cpu[0]) and _same(on_card[1], on_cpu[1])
+        assert (sc is None and sp is None) or _same(sc, sp)
+        assert on_card[3:] == on_cpu[3:]
+
+
+@pytest.mark.parametrize("close", ["trim", "median"])
+@pytest.mark.parametrize("vote_chunk", [1, 4])
+def test_robust_round_on_card_equals_cpu(cuda_device, close, vote_chunk):
+    rng = np.random.default_rng(vote_chunk)
+    u = torch.from_numpy((rng.standard_normal((8, 40_000))
+                          * rng.exponential(1.0, 40_000)).astype(np.float32))
+    cfg = FediACConfig(vote_chunk=vote_chunk, robust_agg=close,
+                       trim_frac=0.2, engine=EngineSpec(use_pallas=True))
+    on_card = aggregate_round(u.to(cuda_device), cfg,
+                              prng.PRNGKey(4, device=cuda_device))
+    on_cpu = aggregate_round(u, cfg, prng.PRNGKey(4, device="cpu"))
+    for a, b in zip(on_card[:3], on_cpu[:3]):
+        assert _same(a, b)
+
+
+def test_fl_resume_on_card_bit_identical(cuda_device, tmp_path):
+    data = classification(n=1200, dim=16, seed=0)
+    train, test = data.test_split(0.2)
+    clients = partition_dirichlet(train, 4, beta=0.5, seed=0)
+    kw = dict(n_clients=4, local_steps=2, batch=16, aggregator="libra")
+    full = fl_loop.run_federated(clients, test, fl_loop.FLConfig(
+        rounds=3, **kw), hidden=(32, 16))
+    path = str(tmp_path / "run.npz")
+    fl_loop.run_federated(clients, test, fl_loop.FLConfig(
+        rounds=1, ckpt_path=path, **kw), hidden=(32, 16))
+    resumed = fl_loop.run_federated(clients, test, fl_loop.FLConfig(
+        rounds=3, ckpt_path=path, resume=True, **kw), hidden=(32, 16))
+    assert resumed == full
+
+
 def _close(got, want, dtype):
     # f32: the reference test's 3e-5; bf16: 2e-2 (both round the output to
     # bf16, so a last-bit difference is within it), on f32-converted values

@@ -100,17 +100,46 @@ def test_run_federated_three_rounds_matches_reference(task):
     np.testing.assert_allclose(h_t.loss, h_j.loss, rtol=1e-4)
 
 
-def test_unported_options_raise(task):
+class _Recorder:
+    def __init__(self, feed=None):
+        self.inner, self.feed, self.rounds = None, feed, []
+
+    def wrap(self, inner):
+        self.inner = inner
+        return self
+
+    def round(self, u, state, key, t=0):
+        if self.feed is not None:
+            u = self.feed[t - 1][1]
+        self.rounds.append((t, u))
+        return self.inner.round(u, state, key, t)
+
+
+def test_wrap_transport_watches_and_feeds_rounds(task):
     clients, test = task
-    cfg = fl_loop.FLConfig(n_clients=4, rounds=1, ckpt_path="x.ckpt")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fl_loop.run_federated(clients, test, cfg, device="cpu")
+    kw = dict(n_clients=4, rounds=3, local_steps=2, batch=16)
+    run = lambda cfg, **w: fl_loop.run_federated(
+        clients, test, cfg, hidden=DIMS[1:-1], device="cpu", **w)
+    plain = run(fl_loop.FLConfig(**kw))
+    rec = _Recorder()
+    assert run(fl_loop.FLConfig(**kw), wrap_transport=rec.wrap) == plain
+    assert [t for t, _ in rec.rounds] == [1, 2, 3]
+    # another learning rate trains other local updates; fed the recorded
+    # ones, the model follows the recorded run while the local loss does not
+    fed = _Recorder(feed=rec.rounds)
+    h = run(fl_loop.FLConfig(**kw, lr0=0.05), wrap_transport=fed.wrap)
+    assert h.acc == plain.acc and h.traffic_mb == plain.traffic_mb
+    assert h.loss[1:] != plain.loss[1:]
+
+
+def test_unported_options_raise(task):
+    """What still raises: the packet transport (A9) and probes (A10).
+    Checkpointing and the five baselines run (tests/test_torch_ckpt.py,
+    tests/test_torch_baselines.py)."""
+    clients, test = task
     cfg = fl_loop.FLConfig(n_clients=4, rounds=1, transport="packet")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         fl_loop.run_federated(clients, test, cfg, device="cpu")
-    cfg = fl_loop.FLConfig(n_clients=4, rounds=1, aggregator="fedavg")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fl_loop.run_federated(clients, test, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         fl_loop.run_federated(clients, test, fl_loop.FLConfig(n_clients=4),
                               device="cpu", probe=object())

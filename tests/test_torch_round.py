@@ -131,9 +131,22 @@ def test_counts_and_residual_conservation():
 @pytest.mark.parametrize("override", [
     dict(robust_agg="trim"), dict(robust_agg="median")])
 def test_unported_modes_raise(override):
+    """The robust closes are modes the allreduce does not take: it sums on
+    the wire, and refuses them as the reference's does."""
     cfg = fediac.FediACConfig(**override)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fediac.aggregate_stack(torch.zeros(2, 64), cfg, torch.tensor([0, 0]))
+    u = torch.from_numpy(_updates(4, 64, seed=2))
+    with pytest.raises(ValueError, match="robust_agg"):
+        fediac.fediac_allreduce(u[0], torch.zeros(64), torch.tensor([0, 0]),
+                                cfg)
+
+
+@pytest.mark.parametrize("override", [
+    dict(robust_agg="trim"), dict(robust_agg="median")])
+def test_robust_closes_run_in_stacked_round(override):
+    cfg = fediac.FediACConfig(**override)
+    u = torch.from_numpy(_updates(4, 64, seed=2))
+    delta, res, _, _ = fediac.aggregate_stack(u, cfg, torch.tensor([0, 0]))
+    assert bool(torch.isfinite(delta).all() and torch.isfinite(res).all())
 
 
 @pytest.mark.parametrize("name", ["stream", "sharded", "async"])

@@ -78,7 +78,7 @@ def test_module_layout_mirrors_reference():
     for path in SRC.rglob("*.py"):
         rel = path.relative_to(SRC)
         if rel.name in ("testing.py", "xla_math.py", "prng.py", "build.py",
-                        "collectives.py") \
+                        "collectives.py", "pytree.py") \
                 or rel == Path("__init__.py"):
             continue   # the port's own helpers and package root
         assert (ref / rel).exists(), f"{rel} has no reference counterpart"
