@@ -34,7 +34,23 @@ Phases, each of which raises (and exits non-zero) on failure:
    bitwise, every FL round's aggregate replayed bitwise, the FL runs
    within their gates and in the paper's traffic order, the resumed runs
    bit-identical; then each round's time;
-7. allreduce path: 8 ranks on the one card over gloo (spawned once), each
+7. stream path (``core/stream_engine.py``, B1 once per chunk): the stream
+   engine at N = 32, d = 1,000,000 with the default chunk and a chunk of
+   100,003, for top-k with the sum, trim and median closes and for
+   threshold/block, each bitwise against the monolithic round; the FL
+   loop on ``EngineSpec("stream", chunk=4096)``, its history bitwise the
+   monolithic run's; stream against monolithic at N = 8, d = 10,000,000
+   (bitwise, both peaks printed, the monolithic one reckoned at 1e8); the
+   scale cell, N = 8, d = 100,007,936 (the reference's d ~ 1e8), timed
+   (median of 3), profiled, its peak memory with and without ``out=``,
+   its counts, finiteness and conservation checked, ``out=u_stack`` in
+   place and bitwise; the B1 count zeroed just before each run and read
+   just after, and tallied by operand shape (one launch per chunk); B1 on
+   the strided column views of each stack at every chunk and tail shape
+   these runs launch it at, bitwise against its plain version; then B1 at
+   the chunk shape [8, 262,144] and the two copies around each chunk's
+   launch;
+8. allreduce path: 8 ranks on the one card over gloo (spawned once), each
    one client of ``fediac_allreduce`` at d = 12,500,992 (one device's
    slice of the reference's d ~ 1e8 sort-free scale cell) on the packed
    wire, threshold/block (``vote_pack`` + ``popcount``) and topk/topk
@@ -42,13 +58,13 @@ Phases, each of which raises (and exits non-zero) on failure:
    residuals, with each rank's launch counts zeroed just before and read
    just after; gates on every rank; then both configs at d = 1,000,000 on
    the card and on the CPU, bitwise; then round and collective times;
-8. timing: each kernel, its plain version and its memory bound at the main
-   paths' shapes (``gather_quant`` at both of its shapes), and whole
+9. timing: each kernel, its plain version and its memory bound at the main
+   paths' shapes (``gather_quant`` at each of its shapes), and whole
    rounds.  A kernel's ``ms`` is CUDA-event time per wrapper call (it
    includes the host's launch work whenever that is slower than the
    kernel); ``device_ms`` is the kernel alone, per launch of a replayed
    CUDA graph of back-to-back calls;
-9. serve path: Qwen3-0.6B at full width and depth (28 layers, random
+10. serve path: Qwen3-0.6B at full width and depth (28 layers, random
    weights from ``PRNGKey(0)``) prefills 2 requests of 32,768 tokens
    through ``make_serve_step`` (the counts zeroed just before; B6's bf16
    tensor-core instance must launch once per layer), its logits finite;
@@ -73,6 +89,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import shutil
@@ -148,11 +165,14 @@ def check(cond: bool, msg: str) -> None:
 
 
 def same_bits(a, b) -> bool:
-    """Bitwise equality of two tensors of one dtype (float via int32 view)."""
+    """Bitwise equality of two tensors of one dtype (float via int32 view),
+    on their device when they share one, else on the host."""
     import torch
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    a, b = a.detach().cpu(), b.detach().cpu()
+    a, b = a.detach(), b.detach()
+    if a.device != b.device:
+        a, b = a.cpu(), b.cpu()
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return bool(torch.equal(a, b))
@@ -835,6 +855,352 @@ def phase_compare(u_stack, key) -> dict:
     log("[compare timing] " + json.dumps({"round_ms": times,
                                           "fl_round_ms": fl_ms,
                                           "slowest": out["slowest_baseline"]}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The stream path: the chunked round engine, bitwise against the
+# monolithic one, and its d ~ 1e8 scale cell
+# ---------------------------------------------------------------------------
+
+#: chunk sizes of the bit-identity runs at N_CLIENTS x D: the default
+#: (3 full chunks and a ragged tail) and one that is not a power of two
+STREAM_CHUNKS = (None, 100_003)
+#: the scale cell: SHARD_D of benchmarks/aggregation_round.py:62 (the
+#: reference's d ~ 1e8) at the N = 8 of its stream cells (:46-48)
+STREAM_SCALE_N, STREAM_SCALE_D = 8, 8 * 4096 * 3052
+STREAM_SCALE_ITERS = 3           # timed rounds (median) of the scale cell
+#: stream against monolithic at the reference's stream scale cell
+#: (STREAM_GRID, aggregation_round.py:46-48), a size both engines hold
+STREAM_CHECK_D = 10_000_000
+STREAM_FL_CHUNK = 4096
+
+
+def _stream_cfgs() -> dict:
+    """The stream phase's round configs, kernels on: top-k with the sum,
+    trim and median closes, and threshold/block with the sum."""
+    from repro_torch.core.engines import EngineSpec
+    from repro_torch.core.fediac import FediACConfig
+    spec = EngineSpec(use_pallas=True)
+    return {"topk_sum": FediACConfig(engine=spec),
+            "topk_trim": FediACConfig(robust_agg="trim", trim_frac=0.1,
+                                      engine=spec),
+            "topk_median": FediACConfig(robust_agg="median", engine=spec),
+            "block_sum": FediACConfig(vote_mode="threshold",
+                                      compact_mode="block", engine=spec)}
+
+
+def _same_round(a, b) -> bool:
+    return (all(same_bits(x, y) for x, y in zip(a[:3], b[:3]))
+            and a[3] == b[3])
+
+
+def _peak_gib(fn):
+    """``fn()``'s result, and the device memory peak while it ran: in all,
+    and above what was allocated when it started (GiB)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return res, peak / 2**30, (peak - base) / 2**30
+
+
+def _free_card() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _b1_tally(by_shape: dict):
+    """Tally B1's launches by operand shape while the block runs: each call
+    the engines make through ``kernels.ops`` adds what the wrapper's own
+    count rose by, under the shape it was given."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gather_quant import gather_quant
+
+    def tallied(u, *args):
+        before = gather_quant.launches
+        res = gather_quant(u, *args)
+        k = str(list(u.shape))
+        by_shape[k] = by_shape.get(k, 0) + gather_quant.launches - before
+        return res
+
+    ops.gather_quant = tallied
+    try:
+        yield
+    finally:
+        ops.gather_quant = gather_quant
+
+
+def _chunk_shapes(n: int, d: int, c: int) -> dict:
+    """The B1 launch shapes of one fused stream round, with their counts."""
+    shapes = {str([n, c]): d // c}
+    if d % c:
+        shapes[str([n, d % c])] = 1
+    return shapes
+
+
+def _b1_strided_parity(u, c: int, q_keys, seed: int) -> list:
+    """B1 on the strided column views of ``u`` the stream engine hands it
+    (a full chunk, and the ragged tail where there is one), with that
+    chunk's uniform_block draw, a 5% consensus mask and f from the stack's
+    max, against its plain version on the same operands: q and the residual
+    bitwise.  Returns the shapes checked."""
+    import torch
+    from repro_torch.core import streams
+    from repro_torch.core.quantize import scale_factor
+    from repro_torch.kernels.gather_quant import gather_quant, gather_quant_plain
+    n, d = u.shape
+    f = torch.tensor(scale_factor(12, n, 1.0), device=DEV) / u.abs().max()
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    spans = [(c if d // c > 1 else 0, c)]
+    if d % c:
+        spans.append((d - d % c, d % c))
+    shapes = []
+    for start, cols in spans:
+        view = u[:, start:start + cols]
+        uni = streams.uniform_block(q_keys, start, cols, d)
+        sel = (torch.rand(cols, device=DEV, generator=gen) < 0.05).to(
+            torch.uint8)
+        q, res = gather_quant(view, uni, sel, f)
+        q_p, res_p = gather_quant_plain(view, uni, sel, f)
+        check(same_bits(q, q_p) and same_bits(res, res_p),
+              f"B1 on the strided chunk u[:, {start}:{start + cols}] of a "
+              f"{list(u.shape)} stack != its plain version")
+        shapes.append([n, cols])
+    return shapes
+
+
+def phase_stream(u_stack, key) -> dict:
+    """The stream engine on the card.  Its runs are the stream path: the
+    B1 count is zeroed just before each and read just after.  Bitwise
+    against the monolithic engine at N_CLIENTS x D (two chunk sizes, four
+    configs) and at 8 x STREAM_CHECK_D, the FL loop's history on it equal
+    to the monolithic run's, then the 8 x STREAM_SCALE_D cell: timed,
+    profiled, its peak memory with and without ``out=``, checked; then B1
+    at the cell's chunk shape and the copies around each chunk's launch."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import fediac, prng, stream_engine, streams
+    from repro_torch.core.engines import EngineSpec
+    from repro_torch.kernels.gather_quant import gather_quant, gather_quant_plain
+    from repro_torch.training.fl_loop import run_federated
+    out = {"launches": 0, "launches_by_shape": {}, "b1_strided_bitwise": []}
+    by_shape = out["launches_by_shape"]
+
+    def counted(fn, cfg, n, d, chunk):
+        """``fn()`` with the B1 count zeroed just before and read just
+        after, and tallied by shape: one launch per chunk on the fused
+        path, none otherwise."""
+        c = stream_engine._chunk_size(cfg, d, chunk)
+        fused = fediac.plan_wants_dense_mask(cfg)
+        tally = {}
+        gather_quant.launches = 0
+        with _b1_tally(tally):
+            res = fn()
+        torch.cuda.synchronize()
+        got = gather_quant.launches
+        want = _chunk_shapes(n, d, c) if fused else {}
+        check(got == sum(want.values()) and tally == {
+            k: v for k, v in want.items() if v},
+              f"stream N={n} d={d} chunk={c}: B1 launched {got} times, by "
+              f"shape {tally}, not {want}")
+        out["launches"] += got
+        for k, v in tally.items():
+            by_shape[k] = by_shape.get(k, 0) + v
+        return res
+
+    def strided_parity(u, chunk, seed):
+        c = stream_engine._chunk_size(cfg, u.shape[1], chunk)
+        q_keys = prng.split(key, 2 * u.shape[0])[u.shape[0]:]
+        out["b1_strided_bitwise"] += _b1_strided_parity(u, c, q_keys, seed)
+
+    # -- bitwise against the monolithic engine at N_CLIENTS x D
+    n, d = u_stack.shape
+    for name, cfg in _stream_cfgs().items():
+        mono = fediac.aggregate_stack(u_stack, cfg, key)
+        for chunk in STREAM_CHUNKS:
+            got = counted(lambda: stream_engine.aggregate_stream(
+                u_stack, cfg, key, chunk=chunk), cfg, n, d, chunk)
+            check(_same_round(got, mono), f"stream {name} chunk={chunk} != "
+                  f"monolithic at N={n}, d={d}")
+        del mono, got
+    out["bitwise_at_main"] = [f"{k} chunk={c or 'default'}"
+                              for k in _stream_cfgs() for c in STREAM_CHUNKS]
+    log(f"[stream] N={n} d={d}: {len(out['bitwise_at_main'])} stream rounds "
+        f"bitwise equal to the monolithic ones; B1 launches {by_shape}")
+    cfg = _stream_cfgs()["topk_sum"]
+    for i, chunk in enumerate(STREAM_CHUNKS):
+        strided_parity(u_stack, chunk, seed=20 + i)
+    out["round_ms_at_main"] = {
+        "stream": wall_ms(lambda: stream_engine.aggregate_stream(u_stack, cfg,
+                                                                 key)),
+        "monolithic": wall_ms(lambda: fediac.aggregate_stack(u_stack, cfg,
+                                                             key)),
+        # phase 1 goes over the clients, a block of rows at a time
+        "stream_phase1": wall_ms(lambda: stream_engine._phase1_topk(
+            u_stack, cfg, prng.split(key, 2 * n)[:n],
+            stream_engine.DEFAULT_CHUNK))}
+    rows = device_profile(lambda: stream_engine.aggregate_stream(u_stack, cfg,
+                                                                 key))
+    busy = sum(r[1] for r in rows)
+    out["round_ms_at_main"]["stream_device"] = busy
+    out["round_ms_at_main"]["stream_idle_share"] = (
+        1.0 - busy / out["round_ms_at_main"]["stream"] if rows else None)
+
+    # -- the FL loop on the stream engine, against its monolithic run
+    clients, test, flcfg = _fl_setup()
+    fl_stream = dataclasses.replace(flcfg, engine=EngineSpec(
+        name="stream", chunk=STREAM_FL_CHUNK, use_pallas=True))
+    fl_n, fl_d = FL_SHAPE
+    want = {k: flcfg.rounds * v for k, v in _chunk_shapes(
+        fl_n, fl_d, STREAM_FL_CHUNK).items()}
+    tally = {}
+    gather_quant.launches = 0
+    with _b1_tally(tally):
+        h_stream = run_federated(clients, test, fl_stream, device=DEV)
+    torch.cuda.synchronize()
+    check(gather_quant.launches == sum(want.values()) and tally == want,
+          f"FL on the stream engine launched B1 {gather_quant.launches} times"
+          f", by shape {tally}, not {want}")
+    out["launches"] += gather_quant.launches
+    for k, v in tally.items():
+        by_shape[k] = by_shape.get(k, 0) + v
+    h_mono = run_federated(clients, test, flcfg, device=DEV)
+    check(_same_history(h_stream, h_mono),
+          "FL history on the stream engine != the monolithic run's")
+    out["fl_acc"] = h_stream.acc
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    strided_parity(torch.randn(fl_n, fl_d, device=DEV, generator=gen) ** 3,
+                   STREAM_FL_CHUNK, seed=22)
+    log(f"[stream] FL {flcfg.rounds} rounds on EngineSpec('stream', "
+        f"chunk={STREAM_FL_CHUNK}): history bit-identical to the monolithic "
+        f"run; acc {h_stream.acc}")
+    _free_card()
+
+    # -- stream against monolithic at 8 x STREAM_CHECK_D, and their peaks
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    u8 = torch.randn(STREAM_SCALE_N, STREAM_CHECK_D, device=DEV,
+                     generator=gen) ** 3
+    mono, mono_peak, mono_extra = _peak_gib(
+        lambda: fediac.aggregate_stack(u8, cfg, key))
+    got, st_peak, st_extra = _peak_gib(lambda: counted(
+        lambda: stream_engine.aggregate_stream(u8, cfg, key), cfg,
+        STREAM_SCALE_N, STREAM_CHECK_D, None))
+    check(_same_round(got, mono), f"stream != monolithic at N="
+          f"{STREAM_SCALE_N}, d={STREAM_CHECK_D}")
+    del mono, got
+    strided_parity(u8, None, seed=23)
+    out["check_d"] = {
+        "n": STREAM_SCALE_N, "d": STREAM_CHECK_D, "bitwise": True,
+        "round_ms": {
+            "stream": wall_ms(lambda: stream_engine.aggregate_stream(
+                u8, cfg, key), iters=1),
+            "monolithic": wall_ms(lambda: fediac.aggregate_stack(
+                u8, cfg, key), iters=1)},
+        "peak_gib": {"stream": st_peak, "monolithic": mono_peak},
+        "peak_above_inputs_gib": {"stream": st_extra, "monolithic": mono_extra},
+        # every temporary of the monolithic round is [N, d]-sized: its
+        # peak above the inputs scales with d, the input stack too
+        "monolithic_peak_gib_reckoned_at_scale": (
+            (mono_extra + STREAM_SCALE_N * STREAM_CHECK_D * 4 / 2**30)
+            * STREAM_SCALE_D / STREAM_CHECK_D)}
+    log(f"[stream] N={STREAM_SCALE_N} d={STREAM_CHECK_D}: stream == "
+        f"monolithic bitwise; " + json.dumps(out["check_d"]))
+    del u8
+    _free_card()
+
+    # -- the scale cell: N = 8, d = 100,007,936, the default chunk
+    n, d = STREAM_SCALE_N, STREAM_SCALE_D
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    u = torch.randn(n, d, device=DEV, generator=gen) ** 3
+    (delta, res, counts, _), peak, extra = _peak_gib(lambda: counted(
+        lambda: stream_engine.aggregate_stream(u, cfg, key), cfg, n, d, None))
+    k = cfg.k(d)
+    check(delta.shape == (d,) and res.shape == (n, d) and counts.shape == (d,),
+          "scale cell: output shapes")
+    check(int(counts.sum()) == n * k,
+          f"scale cell: counts sum {int(counts.sum())} != N*k {n * k}")
+    check(bool(torch.isfinite(delta).all() and torch.isfinite(res).all()),
+          "scale cell: non-finite delta or residuals")
+    # what left the clients is what the mean applies: the CPU tests'
+    # conservation check (tests/test_torch_round.py), at its tolerance
+    left = (u - res).mean(0)
+    cons_ok = bool(((left - delta).abs()
+                    <= 1e-6 + 1e-5 * delta.abs()).all())
+    cons_err = float((left - delta).abs().max())
+    del left
+    check(cons_ok, f"scale cell: (u - res).mean(0) vs delta off by {cons_err}")
+    times = []
+    for _ in range(STREAM_SCALE_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stream_engine.aggregate_stream(u, cfg, key)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    round_ms = sorted(times)[STREAM_SCALE_ITERS // 2]
+    u_in = u.clone()
+    ptr = u_in.data_ptr()
+    inplace, peak_in, extra_in = _peak_gib(
+        lambda: stream_engine.aggregate_stream(u_in, cfg, key, out=u_in))
+    check(inplace[1].data_ptr() == ptr and _same_round(
+        inplace, (delta, res, counts, inplace[3])),
+          "scale cell: out=u_stack != the out-of-place round, or not in place")
+    del inplace, u_in
+    _free_card()
+    rows = device_profile(lambda: stream_engine.aggregate_stream(u, cfg, key),
+                          iters=1)
+    busy = sum(r[1] for r in rows)
+    keys = prng.split(key, 2 * n)
+    phase1_ms = wall_ms(lambda: stream_engine._phase1_topk(
+        u, cfg, keys[:n], stream_engine.DEFAULT_CHUNK), iters=1)
+    out["scale"] = {
+        "n": n, "d": d, "chunk": stream_engine.DEFAULT_CHUNK,
+        "chunks": -(-d // stream_engine.DEFAULT_CHUNK),
+        "round_ms": round_ms, "round_ms_all": times, "phase1_ms": phase1_ms,
+        "device_ms": busy,
+        "idle_share": 1.0 - busy / round_ms if rows else None,
+        "device_launches": sum(r[2] for r in rows),
+        "top_kernels": [(nm[:60], ms, c) for nm, ms, c in rows[:6]],
+        "peak_gib": peak, "peak_above_inputs_gib": extra,
+        "peak_gib_out_in_place": peak_in,
+        "peak_above_inputs_gib_out_in_place": extra_in,
+        "input_gib": u.numel() * 4 / 2**30,
+        "counts_sum": int(counts.sum()), "conservation_err": cons_err}
+    log("[stream] scale cell " + json.dumps(out["scale"]))
+
+    # -- B1 at the cell's chunk shape, and the two copies around each
+    # chunk's launch: the wrapper's contiguous copy of the strided chunk
+    # of the stack, and the residual's copy into the residual stack
+    chunk = stream_engine.DEFAULT_CHUNK
+    start = chunk
+    gu, guni, gsel, gf = _stack_gather_inputs(n, chunk, seed=6)
+    strided = u[:, start:start + chunk]
+    q_keys = keys[n:]
+    b1 = time_kernel(lambda: gather_quant(gu, guni, gsel, gf),
+                     lambda: gather_quant_plain(gu, guni, gsel, gf),
+                     16 * n * chunk + chunk + 4, 8 * n * chunk, [n, chunk])
+    strided_parity(u, None, seed=24)
+    log(f"[stream] B1 on strided chunks bitwise equal to its plain version "
+        f"at {out['b1_strided_bitwise']}")
+    r_c = gather_quant(strided, guni, gsel, gf)[1]
+    b1["copy_in_ms"] = cuda_ms(lambda: strided.contiguous())
+    b1["copy_out_ms"] = cuda_ms(lambda: res[:, start:start + chunk].copy_(r_c))
+    b1["strided_call_ms"] = cuda_ms(
+        lambda: gather_quant(strided, guni, gsel, gf))
+    b1["uniform_block_ms"] = cuda_ms(
+        lambda: streams.uniform_block(q_keys, start, chunk, d))
+    out["b1_chunk"] = b1
+    log("[stream] B1 at the chunk shape " + json.dumps(b1))
+    del u, res, delta, counts, strided, r_c, gu, guni, gsel
+    _free_card()
     return out
 
 
@@ -1575,6 +1941,7 @@ def main() -> int:
     main_path = phase_main_path(u_stack, key)
     report = phase_checks(u_stack, key, main_path)
     compare = phase_compare(u_stack, key)
+    stream = phase_stream(u_stack, key)
     allreduce = phase_allreduce()
     timing = phase_timing(u_stack, key)
     timing.update(phase_wire_timing())
@@ -1593,11 +1960,12 @@ def main() -> int:
              "src/repro/kernels/vote_popcount.py:34")):
         t = timing[name]
         # launches on the paths this script drives: the stacked round and
-        # FL loop, and the comparison path (counted in this process), plus
-        # the allreduce (summed over its ranks); unpack is on no path (no
-        # round calls it)
+        # FL loop, the comparison path and the stream path (counted in
+        # this process), plus the allreduce (summed over its ranks);
+        # unpack is on no path (no round calls it)
+        on_stream = stream["launches"] if name == "gather_quant" else 0
         launches = (main_path["launches"].get(name, 0)
-                    + compare["launches"][name]
+                    + compare["launches"][name] + on_stream
                     + allreduce["launches"][name])
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches,
@@ -1608,11 +1976,13 @@ def main() -> int:
                  "library_ms": None, "shape": t["shape"]}
         if name == "gather_quant":
             # the stacked rounds (the sum close, then the trim and median
-            # closes) launch it at [N_CLIENTS, D]; the FL loops and the
-            # allreduce's topk config at shapes of their own
+            # closes) launch it at [N_CLIENTS, D]; the FL loops, the
+            # allreduce's topk config and the stream engine's chunks at
+            # shapes of their own
             at_shape = (main_path["round_launches"]
                         + compare["robust_round_launches"])
-            fl = launches - at_shape - allreduce["launches"][name]
+            fl = launches - at_shape - allreduce["launches"][name] - on_stream
+            cell = stream["b1_chunk"]
             entry["launches_at_shape"] = at_shape
             entry["also_at"] = [
                 {"launches": n_at, **{k: timing[key][k] for k in (
@@ -1621,6 +1991,19 @@ def main() -> int:
                 for key, n_at in (("gather_quant_allreduce",
                                    allreduce["launches"][name]),
                                   ("gather_quant_fl", fl))]
+            # the stream engine's chunk at the scale cell (its launches at
+            # that shape, tallied per shape; the stream path's other chunk
+            # shapes are listed with theirs), with the copies around each
+            # launch; B1 on the strided chunks was held bitwise against
+            # its plain version at every stream shape
+            entry["also_at"].append({
+                "launches": stream["launches_by_shape"][str(cell["shape"])],
+                **{k: cell[k] for k in (
+                    "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                    "bound_by", "copy_in_ms", "copy_out_ms",
+                    "strided_call_ms")}})
+            entry["stream_launches_by_shape"] = stream["launches_by_shape"]
+            entry["bitwise_on_strided_chunks"] = stream["b1_strided_bitwise"]
         kernels.append(entry)
     b6 = serve["b6"]
     instance_keys = ("launches", "ms", "device_ms", "plain_ms", "bound_ms",
@@ -1649,7 +2032,9 @@ def main() -> int:
     timed = ("gather_quant", "gather_quant_allreduce", "gather_quant_fl",
              "stoch_quant", "vote_pack", "pack", "unpack", "popcount_accum")
     summary = {"build_s": build_s, "total_s": time.perf_counter() - t_start,
-               **report, "compare": compare, "allreduce": allreduce,
+               **report, "compare": compare,
+               "stream": {k: v for k, v in stream.items() if k != "b1_chunk"},
+               "allreduce": allreduce,
                "serve": serve,
                **{k: v for k, v in timing.items() if k not in timed}}
     log("[summary] " + json.dumps(summary))

@@ -1,7 +1,10 @@
 """Core FediAC algorithm of the port: voting, consensus plan, quantization,
-the stacked round (:func:`repro_torch.core.fediac.aggregate_stack`), the
-allreduce, the baselines the paper compares, and the seed-revision oracle.
-The reference's ``aggregate_shard`` (the sharded engine) is not ported yet
+the stacked round on its two engines (monolithic
+:func:`repro_torch.core.fediac.aggregate_stack`, chunked
+:func:`repro_torch.core.stream_engine.aggregate_stream`) and the slice
+draws the chunked one reads (:mod:`.streams`), the allreduce, the
+baselines the paper compares, and the seed-revision oracle.  The
+reference's ``aggregate_shard`` (the sharded engine) is not ported yet
 (ROADMAP A8)."""
 
 from . import engines
@@ -14,6 +17,8 @@ from .powerlaw import (PowerLawFit, expected_uploaded, fit_power_law,
                        gamma_compression_error, min_bits, scale_factor)
 from .quantize import dequantize, quantize, stochastic_round
 from .seed_ref import aggregate_stack_seed
+from .stream_engine import aggregate_stream, stream_compress_stack
+from .streams import gumbel_block, uniform_at, uniform_block
 from .voting import gia_from_counts, vote_mask
 
 __all__ = [
@@ -23,5 +28,6 @@ __all__ = [
     "fit_power_law", "gamma_compression_error", "expected_uploaded",
     "min_bits", "scale_factor", "quantize", "dequantize", "stochastic_round",
     "vote_mask", "gia_from_counts", "make_aggregator", "engines",
-    "round_traffic",
+    "round_traffic", "aggregate_stream", "stream_compress_stack",
+    "uniform_block", "uniform_at", "gumbel_block",
 ]

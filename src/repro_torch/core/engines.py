@@ -1,16 +1,21 @@
 """The engine registry: one dispatch surface for the stacked FediAC round.
 
 A frozen :class:`EngineSpec` names an engine and carries its knobs;
-:func:`run` dispatches a round to the engine a config selects.  Only
-``"monolithic"`` (:func:`repro_torch.core.fediac.aggregate_stack`) is
-ported; the reference's other engines are known names that raise
-``NotImplementedError`` naming their ROADMAP item, and their knobs
-(``chunk``, ``devices``, ``axis``) come with them.
+:func:`run` dispatches a round to the engine a config selects.  Two
+engines are ported, each bitwise equal to the other on the same inputs:
+``"monolithic"`` (:func:`repro_torch.core.fediac.aggregate_stack`, which
+holds several ``[N, d]`` temporaries) and ``"stream"``
+(:func:`repro_torch.core.stream_engine.aggregate_stream`, the same round
+in coordinate chunks with ``O(N·chunk)`` temporaries).  The reference's
+other engines are known names that raise ``NotImplementedError`` naming
+their ROADMAP item; their knobs (``devices``, ``axis``) come with them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from repro_torch.validate import require
 
 __all__ = ["EngineSpec", "get", "resolve", "run"]
 
@@ -18,23 +23,33 @@ __all__ = ["EngineSpec", "get", "resolve", "run"]
 @dataclasses.dataclass(frozen=True)
 class EngineSpec:
     """One engine choice plus its knobs, as a single hashable value.
-    ``use_pallas`` (the reference's name) routes phase 2 of the
-    monolithic engine through the fused CUDA kernels; it is the only
-    switch for them."""
+    ``use_pallas`` (the reference's name) routes phase 2 of either engine
+    through the fused CUDA kernel; it is the only switch for them.
+    ``chunk`` is the stream engine's coordinates per chunk (0: its
+    ``DEFAULT_CHUNK``)."""
 
     name: str = "monolithic"
+    chunk: int = 0
     use_pallas: bool = False
 
+    def __post_init__(self):
+        require(isinstance(self.chunk, int) and not isinstance(self.chunk, bool)
+                and self.chunk >= 0, "chunk", "a non-negative int", self.chunk)
 
-def _run_monolithic(u_stack, cfg, key, a):
+
+def _run_monolithic(spec, u_stack, cfg, key, a):
     from .fediac import aggregate_stack
     return aggregate_stack(u_stack, cfg, key, a=a)
 
 
-_RUNNERS = {"monolithic": _run_monolithic}
+def _run_stream(spec, u_stack, cfg, key, a):
+    from .stream_engine import aggregate_stream
+    return aggregate_stream(u_stack, cfg, key, a=a, chunk=spec.chunk or None)
+
+
+_RUNNERS = {"monolithic": _run_monolithic, "stream": _run_stream}
 #: the reference's other engines, with the ROADMAP item that ports each
-_NOT_PORTED = {"stream": "A7: stream engine",
-               "sharded": "A8: distributed",
+_NOT_PORTED = {"sharded": "A8: distributed",
                "async": "A9: packet dataplane"}
 
 
@@ -69,4 +84,5 @@ def run(u_stack, cfg, key, *, a=None):
     """Run one stacked round on the engine ``cfg`` selects; the
     ``aggregate_stack`` return contract ``(delta, residuals, counts,
     TrafficStats)``."""
-    return _RUNNERS[resolve(cfg).name](u_stack, cfg, key, a)
+    spec = resolve(cfg)
+    return _RUNNERS[spec.name](spec, u_stack, cfg, key, a)

@@ -31,7 +31,8 @@ from repro_torch import resolve_device
 from . import xla_math
 
 __all__ = ["PRNGKey", "split", "fold_in", "random_bits", "uniform", "gumbel",
-           "normal", "randint", "threefry2x32"]
+           "normal", "randint", "threefry2x32", "hash_pairs",
+           "uniform_from_bits", "gumbel_from_bits"]
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -70,17 +71,22 @@ def _key_halves(key: torch.Tensor, ndim: int):
     return key[..., 0].reshape(view), key[..., 1].reshape(view)
 
 
-def _counts(shape, device):
-    n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
-    return idx >> 32, idx & _M32
+def hash_pairs(key: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor):
+    """Both threefry output lanes of ``key`` (leading dims act as a batch
+    of keys) over explicit count pairs ``(hi, lo)``: int64 tensors of
+    uint32 values, one pair per element.  Every draw of this module and
+    the slice draws of :mod:`.streams` hash through here."""
+    k1, k2 = _key_halves(key, hi.dim())
+    return threefry2x32(k1, k2, hi, lo)
 
 
 def _hash_counts(key: torch.Tensor, shape):
+    """The partitionable layout: element ``i`` of a ``shape``-sized draw
+    hashes the pair ``(i >> 32, i & 0xffffffff)``."""
     shape = tuple(int(s) for s in shape)
-    k1, k2 = _key_halves(key, len(shape))
-    hi, lo = _counts(shape, key.device)
-    return threefry2x32(k1, k2, hi, lo)
+    idx = torch.arange(math.prod(shape), dtype=torch.int64,
+                       device=key.device).reshape(shape)
+    return hash_pairs(key, idx >> 32, idx & _M32)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
@@ -114,10 +120,11 @@ def _bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(floats, 0.0)
 
 
-def uniform(key: torch.Tensor, shape, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
-    floats = _bits_to_uniform(random_bits(key, shape))
+def uniform_from_bits(bits: torch.Tensor, minval: float = 0.0,
+                      maxval: float = 1.0) -> torch.Tensor:
+    """jax's float32 uniform on ``[minval, maxval)`` from its 32 random
+    bits per element."""
+    floats = _bits_to_uniform(bits)
     if minval == 0.0 and maxval == 1.0:
         return floats
     lo = np.float32(minval)
@@ -127,10 +134,22 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
     return torch.clamp_min(xla_math.fma(floats, span, lo), float(lo))
 
 
+def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """jax's float32 Gumbel (mode "low") from its 32 random bits per
+    element: ``-log(-log(u))`` over ``u`` uniform on ``[tiny, 1)``."""
+    tiny = float(np.finfo(np.float32).tiny)
+    return -xla_math.log(-xla_math.log(uniform_from_bits(bits, tiny, 1.0)))
+
+
+def uniform(key: torch.Tensor, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    return uniform_from_bits(random_bits(key, shape), minval, maxval)
+
+
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.gumbel(key, shape, float32)`` in mode "low"."""
-    tiny = float(np.finfo(np.float32).tiny)
-    return -xla_math.log(-xla_math.log(uniform(key, shape, tiny, 1.0)))
+    return gumbel_from_bits(random_bits(key, shape))
 
 
 # XLA's float32 erf_inv (Giles' single-precision approximation), the

@@ -7,7 +7,7 @@ step takes the resulting :class:`RoundPlan`.
 
 One plan object serves both compact modes: the top-k plan (``idx``/``keep``
 plus the dense ``sel`` mask of the fused kernel) and the block plan
-(``keep_dense``/``pos``).  The streaming slot map is queued in ROADMAP.
+(``keep_dense``/``pos``), and the streaming engine's slot map.
 """
 
 from __future__ import annotations
@@ -44,6 +44,11 @@ class RoundPlan(NamedTuple):
     ``sel`` uint8[d] is the dense 0/1 selection mask, built on demand (for
     the fused gather-quant kernel in topk mode; it is ``keep_dense`` in
     block mode).
+
+    ``slot`` int32[d] is the inverse of ``idx``, built on demand for the
+    streaming engine: the compact-buffer slot of every consensus
+    coordinate, so that a chunk finds its coordinates' slots without a
+    sort.  It is 0 (a dummy that ``sel`` masks) everywhere else.
     """
 
     idx: Optional[torch.Tensor] = None
@@ -51,6 +56,7 @@ class RoundPlan(NamedTuple):
     keep_dense: Optional[torch.Tensor] = None
     pos: Optional[torch.Tensor] = None
     sel: Optional[torch.Tensor] = None
+    slot: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
@@ -58,7 +64,8 @@ class RoundPlan(NamedTuple):
 
 
 def build_round_plan(counts: torch.Tensor, cfg, n_clients: int, *, a=None,
-                     with_dense_mask: bool = False) -> RoundPlan:
+                     with_dense_mask: bool = False,
+                     with_slot_map: bool = False) -> RoundPlan:
     """Run the once-per-round consensus selection from the vote counts.
 
     ``counts`` int32[d//g] summed votes; ``cfg`` a FediACConfig; ``a``
@@ -75,8 +82,13 @@ def build_round_plan(counts: torch.Tensor, cfg, n_clients: int, *, a=None,
         return RoundPlan(keep_dense=keep_dense, pos=pos, sel=sel)
     n_chunks = counts.shape[-1]
     idx, keep = compaction.consensus_indices(counts, a, cfg.capacity(n_chunks))
-    sel = None
+    rows = idx.long()
+    sel = slot = None
     if with_dense_mask:
         sel = torch.zeros((n_chunks,), dtype=torch.uint8, device=counts.device)
-        sel[idx.long()] = keep.to(torch.uint8)
-    return RoundPlan(idx=idx, keep=keep, sel=sel)
+        sel[rows] = keep.to(torch.uint8)
+    if with_slot_map:
+        slot = torch.zeros((n_chunks,), dtype=torch.int32, device=counts.device)
+        slot[rows] = torch.arange(idx.shape[0], dtype=torch.int32,
+                                  device=counts.device)
+    return RoundPlan(idx=idx, keep=keep, sel=sel, slot=slot)

@@ -23,8 +23,8 @@ from .stoch_quant import stoch_quant
 from .vote_pack import vote_pack
 from .vote_popcount import popcount_accum
 
-__all__ = ["quantize_flat", "gather_quant_flat", "pack_votes", "unpack_votes",
-           "count_votes", "pack_votes_threshold"]
+__all__ = ["quantize_flat", "gather_quant_flat", "gather_quant_chunk",
+           "pack_votes", "unpack_votes", "count_votes", "pack_votes_threshold"]
 
 
 def _scalar_f(f, like: torch.Tensor) -> torch.Tensor:
@@ -43,6 +43,16 @@ def gather_quant_flat(u: torch.Tensor, uniforms: torch.Tensor,
     """Fused phase-2 client round: ``(u [N, L] or [L], uniforms like u,
     shared sel uint8 [L], f) -> (q_dense int32, residual float32)``."""
     return gather_quant(u, uniforms, sel, _scalar_f(f, u))
+
+
+def gather_quant_chunk(u_chunk: torch.Tensor, uniforms_chunk: torch.Tensor,
+                       sel_chunk: torch.Tensor, f):
+    """The streaming engine's phase-2 step: all N clients' ``[N, L]``
+    coordinate chunk of one round in one launch.  The kernel is
+    elementwise, so a chunk equals the same slice of one full-width call,
+    given the slice of the full-width uniform draw
+    (:func:`repro_torch.core.streams.uniform_block`)."""
+    return gather_quant_flat(u_chunk, uniforms_chunk, sel_chunk, f)
 
 
 def pack_votes(mask_flat: torch.Tensor) -> torch.Tensor:

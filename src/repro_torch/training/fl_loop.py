@@ -14,9 +14,12 @@ the flat vector is ``[b0, w0, b1, w1, ...]``.  The error-feedback stack,
 the update stack and the aggregated delta all index that vector.
 
 Ported: the in-memory transport with all six aggregators of
-:mod:`repro_torch.core.baselines`, and round-granular checkpointing with
-bit-exact resume (``ckpt_path``, ``ckpt_every``, ``resume``).  Probes and
-the packet transport raise ``NotImplementedError``.
+:mod:`repro_torch.core.baselines`, FediAC on either ported engine
+(``FLConfig.engine``: the monolithic one or the chunked ``"stream"``
+one, with bit-identical histories), round-granular checkpointing with
+bit-exact resume (``ckpt_path``, ``ckpt_every``, ``resume``), and the
+history readouts of the paper's figures and tables.  Probes and the
+packet transport raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -197,6 +200,10 @@ class RoundRecord:
     traffic_mb: float      # cumulative MB (upload + download, all clients)
     loss: float
 
+    def to_metrics(self) -> dict:
+        return {"acc": self.acc, "wall_clock_cum_s": self.wall_clock,
+                "traffic_cum_mb": self.traffic_mb, "loss": self.loss}
+
 
 class FLHistory:
     """Per-round :class:`RoundRecord` list with the reference's read-only
@@ -240,6 +247,17 @@ class FLHistory:
 
     def __repr__(self) -> str:
         return f"FLHistory({len(self.records)} rounds)"
+
+    def acc_at_time(self, t: float) -> float:
+        """The best accuracy reached within a wall-clock budget of ``t``
+        seconds (the paper's Fig. 2 readout)."""
+        return max([0.0] + [r.acc for r in self.records if r.wall_clock <= t])
+
+    def traffic_to_accuracy(self, target: float) -> float | None:
+        """Cumulative MB when the test accuracy first reaches ``target``
+        (the paper's Tables I/II readout); None if it never does."""
+        return next((r.traffic_mb for r in self.records if r.acc >= target),
+                    None)
 
 
 def _stack_clients(clients, batch: int, rng: np.random.Generator, device):

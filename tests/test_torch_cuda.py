@@ -95,6 +95,52 @@ def test_round_on_card_equals_cpu(cuda_device, vote_chunk):
         assert _same(a, b)
 
 
+def test_gather_quant_strided_chunk_on_card(cuda_device):
+    """B1 at the stream engine's launch shape [8, 262,144], on a strided
+    column slice of a [8, d] stack as the chunk loop hands it over."""
+    rng = np.random.default_rng(11)
+    n, d, start, size = 8, 600_000, 262_144, 262_144
+    u = torch.from_numpy((rng.standard_normal((n, d)) ** 3)
+                         .astype(np.float32)).to(cuda_device)
+    uni = torch.from_numpy(rng.random((n, size), dtype=np.float32))
+    sel = torch.from_numpy((rng.random(size) < 0.05).astype(np.uint8))
+    uni, sel = uni.to(cuda_device), sel.to(cuda_device)
+    f = torch.tensor(3.7, device=cuda_device)
+    chunk = u[:, start:start + size]
+    assert not chunk.is_contiguous()
+    before = gather_quant.gather_quant.launches
+    qk, rk = gather_quant.gather_quant(chunk, uni, sel, f)
+    torch.cuda.synchronize()
+    assert gather_quant.gather_quant.launches == before + 1
+    qp, rp = gather_quant.gather_quant_plain(chunk, uni, sel, f)
+    assert _same(qk, qp) and _same(rk, rp)
+
+
+@pytest.mark.parametrize("kernels", [False, True])
+@pytest.mark.parametrize("vote_mode,compact_mode", [("topk", "topk"),
+                                                    ("threshold", "block")])
+def test_stream_round_on_card_equals_stack(cuda_device, kernels, vote_mode,
+                                           compact_mode):
+    """The stream engine on the card: bitwise its monolithic round, one B1
+    launch per chunk on the fused path and none otherwise."""
+    from repro_torch.core.stream_engine import aggregate_stream
+    rng = np.random.default_rng(5)
+    u = torch.from_numpy((rng.standard_normal((8, 40_000)) ** 3)
+                         .astype(np.float32)).to(cuda_device)
+    cfg = FediACConfig(vote_mode=vote_mode, compact_mode=compact_mode,
+                       block_size=1024, engine=EngineSpec(use_pallas=kernels))
+    key = prng.PRNGKey(4, device=cuda_device)
+    before = gather_quant.gather_quant.launches
+    stream = aggregate_stream(u, cfg, key, chunk=9_999)
+    torch.cuda.synchronize()
+    fused = kernels and compact_mode == "topk"
+    assert gather_quant.gather_quant.launches - before == (
+        -(-40_000 // 9_999) if fused else 0)
+    mono = aggregate_round(u, cfg, key)
+    for a, b in zip(stream[:3], mono[:3]):
+        assert _same(a, b)
+
+
 def test_fl_loop_on_card_matches_cpu(cuda_device):
     data = classification(n=1200, dim=16, seed=0)
     train, test = data.test_split(0.2)

@@ -130,7 +130,7 @@ def test_counts_and_residual_conservation():
 
 @pytest.mark.parametrize("override", [
     dict(robust_agg="trim"), dict(robust_agg="median")])
-def test_unported_modes_raise(override):
+def test_allreduce_refuses_robust_closes(override):
     """The robust closes are modes the allreduce does not take: it sums on
     the wire, and refuses them as the reference's does."""
     cfg = fediac.FediACConfig(**override)
@@ -149,7 +149,7 @@ def test_robust_closes_run_in_stacked_round(override):
     assert bool(torch.isfinite(delta).all() and torch.isfinite(res).all())
 
 
-@pytest.mark.parametrize("name", ["stream", "sharded", "async"])
+@pytest.mark.parametrize("name", ["sharded", "async"])
 def test_unported_engines_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engines.get(name)
