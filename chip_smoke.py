@@ -50,21 +50,37 @@ Phases, each of which raises (and exits non-zero) on failure:
    these runs launch it at, bitwise against its plain version; then B1 at
    the chunk shape [8, 262,144] and the two copies around each chunk's
    launch;
-8. allreduce path: 8 ranks on the one card over gloo (spawned once), each
+8. shard path (``core/shard_engine.py``, every shard on the one card,
+   kernels off, as the engine refuses them): at N = 8, d = 983,040 every
+   vote x compact mode on 8 shards (and top-k/top-k on 3, ragged) bitwise
+   against the monolithic round, ``shard_compress_stack`` in top-k and
+   block mode bitwise against the stacked phase-2 compress; the
+   reference's sharded cell, N = 8, d = 100,007,936 on 8 shards,
+   threshold/block and top-k/top-k (the latter bitwise against the
+   stream engine), each gated as the stream scale cell, timed (median of
+   3), its phase 1 timed, profiled, its peak above its inputs and outputs
+   and one shard's working set; then the shard, stream and monolithic
+   rounds timed at d = 9,994,240;
+9. allreduce path: 8 ranks on the one card over gloo (spawned once), each
    one client of ``fediac_allreduce`` at d = 12,500,992 (one device's
    slice of the reference's d ~ 1e8 sort-free scale cell) on the packed
    wire, threshold/block (``vote_pack`` + ``popcount``) and topk/topk
    (``pack`` + ``popcount`` + ``gather_quant``), two rounds each carrying
    residuals, with each rank's launch counts zeroed just before and read
    just after; gates on every rank; then both configs at d = 1,000,000 on
-   the card and on the CPU, bitwise; then round and collective times;
-9. timing: each kernel, its plain version and its memory bound at the main
+   the card and on the CPU, bitwise; the mesh baselines
+   (``switchml_allreduce`` at 14 bits, ``topk_allreduce`` at 5%) on the
+   same ranks, held to the reference's contracts and card == CPU at
+   d = 1,000,000; then round and collective times; then one NCCL rank
+   (world size 1) running the packed top-k allreduce and both mesh
+   baselines, each bitwise against the same call on a one-rank gloo group;
+10. timing: each kernel, its plain version and its memory bound at the main
    paths' shapes (``gather_quant`` at each of its shapes), and whole
    rounds.  A kernel's ``ms`` is CUDA-event time per wrapper call (it
    includes the host's launch work whenever that is slower than the
    kernel); ``device_ms`` is the kernel alone, per launch of a replayed
    CUDA graph of back-to-back calls;
-10. serve path: Qwen3-0.6B at full width and depth (28 layers, random
+11. serve path: Qwen3-0.6B at full width and depth (28 layers, random
    weights from ``PRNGKey(0)``) prefills 2 requests of 32,768 tokens
    through ``make_serve_step`` (the counts zeroed just before; B6's bf16
    tensor-core instance must launch once per layer), its logits finite;
@@ -210,13 +226,16 @@ def wall_ms(fn, iters: int = 3) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_profile(fn, iters: int = 3) -> list:
+def device_profile(fn, iters: int = 3, warm: bool = True) -> list:
     """Device milliseconds per call of ``fn()``, by CUDA kernel name, from
     ``torch.profiler`` (CUPTI): [(kernel, ms per call, launches per call)],
-    longest first.  Empty when the profiler sees no device activity."""
+    longest first.  Empty when the profiler sees no device activity.
+    ``warm=False`` skips the unprofiled call before, for a ``fn`` that
+    has just run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
@@ -1205,6 +1224,203 @@ def phase_stream(u_stack, key) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The shard path: the coordinate-sharded round engine, bitwise against the
+# monolithic and stream engines, at the reference's sharded cell
+# ---------------------------------------------------------------------------
+
+#: the reference's sharded cell (benchmarks/aggregation_round.py:61-64),
+#: N = 8 clients of normal**3 updates (:85, :103)
+SHARD_N, SHARD_DEVICES = 8, 8
+SHARD_D = 8 * 4096 * 3052          # 100,007,936: its d ~ 1e8
+SHARD_TIMING_D = 8 * 4096 * 305    # 9,994,240: its timing width
+SHARD_BITIDENT_D = 8 * 4096 * 30   # 983,040: its bit-identity width
+SHARD_ITERS = 3                    # timed rounds (median) per cell
+SHARD_MODES = (("topk", "topk"), ("topk", "block"), ("threshold", "topk"),
+               ("threshold", "block"))
+
+
+def _shard_cfg(vote_mode, compact_mode, engine="monolithic", devices=0):
+    """A plain (kernels off) config on one engine: the sharded engine
+    refuses the fused kernels, so every engine it is held against runs
+    the same plain round."""
+    from repro_torch.core.engines import EngineSpec
+    from repro_torch.core.fediac import FediACConfig
+    return FediACConfig(vote_mode=vote_mode, compact_mode=compact_mode,
+                        engine=EngineSpec(name=engine, devices=devices))
+
+
+def _shard_stack(d: int, seed: int):
+    import torch
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    return torch.randn(SHARD_N, d, device=DEV, generator=gen) ** 3
+
+
+def _round_gates(where, u, out, cfg) -> float:
+    """Shapes, finiteness, the top-k counts' sum and the conservation of
+    what left the clients (the stream scale cell's gates); returns the
+    conservation error."""
+    import torch
+    delta, res, counts, _ = out
+    n, d = u.shape
+    check(delta.shape == (d,) and res.shape == (n, d)
+          and counts.shape == (d,), f"{where}: output shapes")
+    check(bool(torch.isfinite(delta).all() and torch.isfinite(res).all()),
+          f"{where}: non-finite delta or residuals")
+    if cfg.vote_mode == "topk":
+        check(int(counts.sum()) == n * cfg.k(d),
+              f"{where}: counts sum {int(counts.sum())} != N*k")
+    left = (u - res).mean(0)
+    err = float((left - delta).abs().max())
+    ok = bool(((left - delta).abs() <= 1e-6 + 1e-5 * delta.abs()).all())
+    check(ok, f"{where}: (u - res).mean(0) vs delta off by {err}")
+    return err
+
+
+def phase_shard(card: str) -> dict:
+    """The sharded engine on the card, every shard on it: (a) bitwise
+    against the monolithic round at SHARD_BITIDENT_D in all four modes (8
+    shards; 3, ragged, for top-k/top-k) and ``shard_compress_stack``
+    against the stacked phase-2 compress; (b) the reference's cell at
+    SHARD_D on 8 shards, threshold/block and top-k/top-k (the latter
+    bitwise against the stream engine), timed, phase 1 timed, profiled,
+    its peak above inputs and outputs and one shard's working set; (c) the
+    shard round beside the stream and monolithic rounds at
+    SHARD_TIMING_D."""
+    import torch
+    from repro_torch.core import fediac, prng, shard_engine, stream_engine
+    from repro_torch.core.quantize import scale_factor
+    out = {"card": card}
+    key = prng.PRNGKey(0, device=DEV)
+    n = SHARD_N
+
+    # -- (a) bitwise against the monolithic round
+    t0 = time.perf_counter()
+    u = _shard_stack(SHARD_BITIDENT_D, seed=1)
+    checked = []
+    for vm, cm in SHARD_MODES:
+        mono = fediac.aggregate_stack(u, _shard_cfg(vm, cm), key)
+        for devs in ((SHARD_DEVICES, 3) if (vm, cm) == ("topk", "topk")
+                     else (SHARD_DEVICES,)):
+            got = fediac.aggregate_round(
+                u, _shard_cfg(vm, cm, "sharded", devs), key)
+            check(_same_round(got, mono), f"sharded {vm}/{cm} on {devs} "
+                  f"shards != monolithic at N={n}, d={SHARD_BITIDENT_D}")
+            checked.append(f"{vm}/{cm} devices={devs}")
+        del mono, got
+    keys = prng.split(key, 2 * n)
+    sf = torch.tensor(scale_factor(12, n, 1.0), device=DEV)
+    f = sf / torch.clamp_min(u.abs().max(), 1e-12)
+    for vm, cm in (("topk", "topk"), ("threshold", "block")):
+        cfg = _shard_cfg(vm, cm)
+        topk = cm == "topk"
+        plan = fediac.build_round_plan(
+            fediac._vote_counts_stack(u, cfg, keys[:n]), cfg, n,
+            with_dense_mask=topk, with_slot_map=topk)
+        got = shard_engine.shard_compress_stack(u, cfg, f, keys[n:], plan,
+                                                devices=SHARD_DEVICES)
+        want = fediac.phase2_compress(cfg)(u, cfg, f, keys[n:], plan)
+        check(same_bits(got[0], want[0]) and same_bits(got[1], want[1]),
+              f"shard_compress_stack {cm} != phase2_compress")
+        checked.append(f"shard_compress_stack {cm}")
+    out["bitwise_at"] = {"n": n, "d": SHARD_BITIDENT_D, "checked": checked,
+                         "seconds": time.perf_counter() - t0}
+    log(f"[shard] {card}: N={n} d={SHARD_BITIDENT_D}: bitwise {checked}")
+    del u, got, want, plan
+    _free_card()
+
+    # -- (b) the scale cell: N = 8, d = SHARD_D, 8 shards on the one card
+    u = _shard_stack(SHARD_D, seed=0)
+    s = shard_engine.shard_geometry(SHARD_D, SHARD_DEVICES,
+                                    _shard_cfg("topk", "topk"))[0]
+    # the round's outputs: residuals [N, d], delta and counts [d]
+    out_gib = (u.numel() * 4 + SHARD_D * 8) / 2**30
+    out["scale"] = {}
+    for vm, cm in (("threshold", "block"), ("topk", "topk")):
+        cfg = _shard_cfg(vm, cm, "sharded", SHARD_DEVICES)
+        name = f"{vm}_{cm}"
+        t_cell = time.perf_counter()
+        got, peak, extra = _peak_gib(
+            lambda: fediac.aggregate_round(u, cfg, key))
+        # the gated run is the first timed round
+        times = [(time.perf_counter() - t_cell) * 1e3]
+        cons = _round_gates(f"shard {name} d={SHARD_D}", u, got, cfg)
+        cell = {"n": n, "d": SHARD_D, "devices": SHARD_DEVICES,
+                "shard_width": s, "conservation_err": cons,
+                "counts_sum": int(got[2].sum())}
+        if vm == "topk":
+            plain = _shard_cfg(vm, cm)
+            want = stream_engine.aggregate_stream(u, plain, key)
+            check(_same_round(got, want), f"sharded {name} != the stream "
+                  f"engine at N={n}, d={SHARD_D}")
+            cell["bitwise_vs_stream"] = True
+            del want
+        del got
+        _free_card()
+        for _ in range(SHARD_ITERS - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fediac.aggregate_round(u, cfg, key)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        round_ms = sorted(times)[SHARD_ITERS // 2]
+        shards = shard_engine._shards(u, SHARD_DEVICES, s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if vm == "topk":
+            shard_engine._phase1_topk(shards, keys[:n], cfg.k(SHARD_D),
+                                      SHARD_D)
+        else:
+            shard_engine._phase1_threshold(shards, cfg, cfg.k(SHARD_D))
+        torch.cuda.synchronize()
+        cell["phase1_ms"] = (time.perf_counter() - t0) * 1e3
+        del shards
+        t0 = time.perf_counter()
+        rows = device_profile(lambda: fediac.aggregate_round(u, cfg, key),
+                              iters=1, warm=False)
+        cell["profile_s"] = time.perf_counter() - t0
+        busy = sum(r[1] for r in rows)
+        # one shard's working set: the same round on one shard of width S
+        # (what one device of an 8-device mesh holds), above its own
+        # inputs and outputs
+        one = u[:, :s]
+        _, _, one_extra = _peak_gib(lambda: shard_engine.aggregate_shard(
+            one, cfg, key, devices=1))
+        one_io = (one.numel() * 4 + s * 8) / 2**30
+        cell.update({
+            "round_ms": round_ms, "round_ms_all": times, "device_ms": busy,
+            "idle_share": 1.0 - busy / round_ms if rows else None,
+            "device_launches": sum(r[2] for r in rows),
+            "top_kernels": [(nm[:60], ms, c) for nm, ms, c in rows[:6]],
+            "peak_gib": peak, "peak_above_inputs_gib": extra,
+            "peak_above_inputs_and_outputs_gib": extra - out_gib,
+            "one_shard_working_set_gib": one_extra - one_io,
+            "input_gib": u.numel() * 4 / 2**30,
+            "seconds": time.perf_counter() - t_cell})
+        out["scale"][name] = cell
+        log(f"[shard] {card}: scale cell {name} " + json.dumps(cell))
+        _free_card()
+    del u
+    _free_card()
+
+    # -- (c) the shard round beside the stream and monolithic rounds
+    t0 = time.perf_counter()
+    u = _shard_stack(SHARD_TIMING_D, seed=2)
+    out["timing"] = {"n": n, "d": SHARD_TIMING_D}
+    for vm, cm in (("topk", "topk"), ("threshold", "block")):
+        out["timing"][f"{vm}_{cm}"] = {
+            eng: wall_ms(lambda: fediac.aggregate_round(
+                u, _shard_cfg(vm, cm, eng, SHARD_DEVICES if eng == "sharded"
+                              else 0), key))
+            for eng in ("sharded", "stream", "monolithic")}
+    out["timing"]["seconds"] = time.perf_counter() - t0
+    log(f"[shard] {card}: round ms at N={n} d={SHARD_TIMING_D}, kernels "
+        f"off: " + json.dumps(out["timing"]))
+    del u
+    _free_card()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The allreduce path: AR_RANKS clients, one rank each, on the one card
 # ---------------------------------------------------------------------------
 
@@ -1265,6 +1481,74 @@ def _ar_round_gates(cfg, u, res, out, n, group_max):
             "counts_sum": int(counts.sum()), "n_k": n * k}
 
 
+#: the mesh baselines on the allreduce's ranks (core/mesh_baselines.py),
+#: at the reference's test arguments (tests/test_distributed.py:142-153)
+MESH_BASELINES = {"switchml": ("switchml_allreduce", {"bits": 14}),
+                  "topk": ("topk_allreduce", {"k_frac": 0.05})}
+#: their contracts there: Top-k's error feedback conserves what left the
+#: clients within 2e-2; SwitchML's mean is the dense mean within
+#: max|u| / 2**10
+MESH_EF_TOL = 2e-2
+MESH_SWITCHML_STEP = 2.0 ** -10
+
+
+def _mesh_fns() -> dict:
+    from repro_torch.core import mesh_baselines
+    from repro_torch.core.fediac import FediACConfig
+    return {name: (getattr(mesh_baselines, fn), FediACConfig(**kw))
+            for name, (fn, kw) in MESH_BASELINES.items()}
+
+
+def _mesh_rank(rank: int, world: int, u, key) -> dict:
+    """The mesh baselines on this rank: one gated call each at ``u``'s
+    width, the same call on the card and on the CPU at AR_CHECK_D, then
+    AR_TIME_ITERS timed calls between barriers."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import collectives
+    res = torch.zeros_like(u)
+    dense = u.clone()
+    dist.all_reduce(dense)
+    dense /= world
+    umax = float(collectives.pmax_(u.abs().max()))
+    uc = _rank_update(rank, AR_CHECK_D)
+    out = {}
+    for name, (fn, cfg) in _mesh_fns().items():
+        mean, new_res = fn(u, res, key, cfg)
+        torch.cuda.synchronize()
+        rank0 = mean.clone()
+        dist.broadcast(rank0, 0)
+        gate = {"finite": bool(torch.isfinite(mean).all()
+                               and torch.isfinite(new_res).all()),
+                "same_mean_as_rank0": same_bits(mean, rank0)}
+        if name == "topk":
+            left = (u + res - new_res).to(torch.float32)
+            dist.all_reduce(left)
+            gate["err"] = float((left / world - mean).abs().max())
+            gate["tol"] = MESH_EF_TOL
+        else:
+            gate["err"] = float((mean - dense).abs().max())
+            gate["tol"] = umax * MESH_SWITCHML_STEP
+            gate["residual_zero"] = not bool(new_res.any())
+        del mean, new_res, rank0
+        zc = torch.zeros_like(uc)
+        card = fn(uc, zc, key, cfg)
+        cpu = fn(uc.cpu(), zc.cpu(), key.cpu(), cfg)
+        gate["card_vs_cpu_bitwise"] = all(same_bits(a, b)
+                                          for a, b in zip(card, cpu))
+        times = []
+        for _ in range(AR_TIME_ITERS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(u, res, key, cfg)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            dist.barrier()
+        out[name] = {"gates": gate, "times_ms": times}
+    return out
+
+
 def allreduce_rank(rank: int, world: int) -> dict:
     """One client of the allreduce path (runs in a spawned rank)."""
     import torch
@@ -1320,6 +1604,7 @@ def allreduce_rank(rank: int, world: int) -> dict:
             rg, rc = rg2, rc2
         cpu[name] = rounds
     report["card_vs_cpu"] = cpu
+    report["mesh"] = _mesh_rank(rank, world, u, key0)
 
     # -- timing: each round as the slowest rank between two barriers, and
     # the wire's collectives on their own
@@ -1355,7 +1640,7 @@ def allreduce_rank(rank: int, world: int) -> dict:
     return report
 
 
-def phase_allreduce() -> dict:
+def phase_allreduce(card: str) -> dict:
     """Spawn the AR_RANKS ranks once, run the allreduce path in them, and
     hold every rank to the gates."""
     from repro_torch import testing
@@ -1398,6 +1683,24 @@ def phase_allreduce() -> dict:
                       f"{where}: card and CPU means/residuals differ")
                 check(c["counts_differ"] <= 1e-4 * AR_CHECK_D,
                       f"{where}: {c['counts_differ']} vote counts differ")
+    for rep in reports:
+        for name, m in rep["mesh"].items():
+            g, where = m["gates"], f"rank {rep['rank']} {name}_allreduce"
+            check(g["finite"] and g["same_mean_as_rank0"],
+                  f"{where}: non-finite, or its mean differs from rank 0's")
+            check(g["err"] < g["tol"], f"{where}: off the reference's "
+                  f"contract by {g['err']} (bound {g['tol']})")
+            check(g.get("residual_zero", True),
+                  f"{where}: SwitchML left a residual")
+            check(g["card_vs_cpu_bitwise"], f"{where}: card and CPU differ "
+                  f"at d={AR_CHECK_D}")
+    mesh = {name: {
+        "round_ms": sorted(max(rep["mesh"][name]["times_ms"][i]
+                               for rep in reports)
+                           for i in range(AR_TIME_ITERS))[AR_TIME_ITERS // 2],
+        "err_max": max(rep["mesh"][name]["gates"]["err"] for rep in reports),
+        "tol": min(rep["mesh"][name]["gates"]["tol"] for rep in reports)}
+        for name in MESH_BASELINES}
     slowest = {what: [max(rep["times_ms"][what][i] for rep in reports)
                       for i in range(AR_TIME_ITERS)]
                for what in reports[0]["times_ms"]}
@@ -1413,7 +1716,8 @@ def phase_allreduce() -> dict:
                for rounds in rep["card_vs_cpu"].values() for c in rounds),
            "conservation_err_max": max(
                g["conservation_err"] for rep in reports
-               for gs in rep["gates"].values() for g in gs)}
+               for gs in rep["gates"].values() for g in gs),
+           "mesh_baselines": mesh}
     log(f"[allreduce] {AR_RANKS} ranks, d={AR_D}: every gate held; "
         f"launches {launches}; round ms {out['round_ms']}; peak "
         f"{out['peak_mem_gib_per_rank']:.2f} GiB per rank; card == CPU "
@@ -1422,7 +1726,55 @@ def phase_allreduce() -> dict:
     # host path, not of the card
     log(f"[gloo] slowest rank, median of {AR_TIME_ITERS}, ms: "
         f"{out['gloo_ms']}")
+    log(f"[mesh baselines] {card}: {AR_RANKS} ranks, d={AR_D}: the "
+        f"reference's contracts held, card == CPU bitwise at d={AR_CHECK_D}; "
+        f"slowest rank, median of {AR_TIME_ITERS}: " + json.dumps(mesh))
     return out
+
+
+def nccl_rank(rank: int, world: int) -> dict:
+    """The one rank of an NCCL group of one on the card: the packed top-k
+    ``fediac_allreduce`` (config B) and the two mesh baselines at AR_D,
+    each against the same call on a one-rank gloo group, bitwise, then
+    each timed on both groups."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import fediac, prng
+    torch.cuda.set_device(0)
+    gloo = dist.new_group(backend="gloo")
+    u = _rank_update(rank, AR_D)
+    res = torch.zeros_like(u)
+    key = prng.PRNGKey(0, device=DEV)
+    calls = {"fediac_packed_topk": (fediac.fediac_allreduce,
+                                    _ar_configs()["B"]), **_mesh_fns()}
+    report = {"backend": dist.get_backend(), "world": world}
+    for name, (fn, cfg) in calls.items():
+        nccl = fn(u, res, key, cfg)
+        via_gloo = fn(u, res, key, cfg, group=gloo)
+        torch.cuda.synchronize()
+        report[name] = {
+            "bitwise": all(same_bits(a, b) for a, b in zip(nccl, via_gloo)),
+            "nccl_ms": wall_ms(lambda: fn(u, res, key, cfg)),
+            "gloo_ms": wall_ms(lambda: fn(u, res, key, cfg, group=gloo))}
+    return report
+
+
+def phase_nccl(card: str) -> dict:
+    """The port's first NCCL run: :func:`nccl_rank` in one spawned rank."""
+    from repro_torch import testing
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    try:
+        rep = testing.run_ranks(nccl_rank, 1, f"file://{store}/store",
+                                timeout=600, backend="nccl")[0]
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    check(rep["backend"] == "nccl", f"the group ran on {rep['backend']}")
+    for name in ("fediac_packed_topk", *MESH_BASELINES):
+        check(rep[name]["bitwise"], f"{name} on NCCL (world size 1) != the "
+              "same call on gloo")
+    log(f"[nccl] {card}: world size 1, d={AR_D}: NCCL == gloo bitwise; "
+        + json.dumps(rep))
+    return rep
 
 
 def phase_wire_timing() -> dict:
@@ -1938,14 +2290,24 @@ def main() -> int:
     scale = torch.empty(D, device=DEV).exponential_(generator=gen)
     u_stack = torch.randn(N_CLIENTS, D, device=DEV, generator=gen) * scale
     key = prng.PRNGKey(0, device=DEV)
-    main_path = phase_main_path(u_stack, key)
-    report = phase_checks(u_stack, key, main_path)
-    compare = phase_compare(u_stack, key)
-    stream = phase_stream(u_stack, key)
-    allreduce = phase_allreduce()
-    timing = phase_timing(u_stack, key)
-    timing.update(phase_wire_timing())
-    serve = phase_serve()
+    phase_s = {"to_main_path": time.perf_counter() - t_start}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return res
+
+    main_path = timed("main_path", phase_main_path, u_stack, key)
+    report = timed("checks", phase_checks, u_stack, key, main_path)
+    compare = timed("compare", phase_compare, u_stack, key)
+    stream = timed("stream", phase_stream, u_stack, key)
+    shard = timed("shard", phase_shard, card)
+    allreduce = timed("allreduce", phase_allreduce, card)
+    nccl = timed("nccl", phase_nccl, card)
+    timing = timed("timing", phase_timing, u_stack, key)
+    timing.update(timed("wire_timing", phase_wire_timing))
+    serve = timed("serve", phase_serve)
 
     quant_src = "src/repro_torch/kernels/csrc/quant.cu"
     votes_src = "src/repro_torch/kernels/csrc/votes.cu"
@@ -2032,9 +2394,10 @@ def main() -> int:
     timed = ("gather_quant", "gather_quant_allreduce", "gather_quant_fl",
              "stoch_quant", "vote_pack", "pack", "unpack", "popcount_accum")
     summary = {"build_s": build_s, "total_s": time.perf_counter() - t_start,
+               "phase_s": phase_s,
                **report, "compare": compare,
                "stream": {k: v for k, v in stream.items() if k != "b1_chunk"},
-               "allreduce": allreduce,
+               "shard": shard, "allreduce": allreduce, "nccl": nccl,
                "serve": serve,
                **{k: v for k, v in timing.items() if k not in timed}}
     log("[summary] " + json.dumps(summary))

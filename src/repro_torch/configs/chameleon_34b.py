@@ -20,10 +20,8 @@ def config() -> ArchConfig:
         frontend="vq_stub", tie_embeddings=False,
         param_dtype="bfloat16", compute_dtype="bfloat16",
         grad_dtype="bfloat16", residual_dtype="bfloat16",
-        # the reference also sets granularity="tensor", a knob of the
-        # sharded allreduce that the port brings back with it (ROADMAP
-        # "Next" 7)
-        fediac=FediACConfig(vote_chunk=4096, work_dtype="bfloat16"),
+        fediac=FediACConfig(vote_chunk=4096, work_dtype="bfloat16",
+                            granularity="tensor"),
         fsdp=True, microbatch=8, fl_local_steps=1,
     )
 

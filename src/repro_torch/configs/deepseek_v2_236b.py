@@ -24,10 +24,8 @@ def config() -> ArchConfig:
         first_dense_layers=1, d_ff_dense=12288, capacity_factor=1.0,
         tie_embeddings=False, param_dtype="bfloat16", compute_dtype="bfloat16",
         grad_dtype="bfloat16", residual_dtype="bfloat16",
-        # the reference also sets granularity="tensor", a knob of the
-        # sharded allreduce that the port brings back with it (ROADMAP
-        # "Next" 7)
-        fediac=FediACConfig(vote_chunk=4096, work_dtype="bfloat16"),
+        fediac=FediACConfig(vote_chunk=4096, work_dtype="bfloat16",
+                            granularity="tensor"),
         fsdp=True, microbatch=32, fl_local_steps=1,
     )
 

@@ -45,12 +45,13 @@ def psum_(t: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def psum_in_order(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum over the clients in rank order, ``((t_0 + t_1) + t_2) + ...``:
-    the order of the reference's host all-reduce, the same on every rank
-    and backend.  Gathers all N operands first."""
+    """Sum over the clients in rank order from +0.0, ``((0 + t_0) + t_1)
+    + ...``: the order of the reference's host all-reduce (a column of
+    -0.0 sums to +0.0), the same on every rank and backend.  Gathers all N
+    operands first."""
     parts = all_gather(t, group)
-    total = parts[0].clone()
-    for part in parts[1:]:
+    total = torch.zeros_like(parts[0])
+    for part in parts:
         total += part
     return total
 

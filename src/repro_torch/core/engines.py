@@ -1,14 +1,17 @@
 """The engine registry: one dispatch surface for the stacked FediAC round.
 
 A frozen :class:`EngineSpec` names an engine and carries its knobs;
-:func:`run` dispatches a round to the engine a config selects.  Two
-engines are ported, each bitwise equal to the other on the same inputs:
+:func:`run` dispatches a round to the engine a config selects.  Three
+engines are ported, each bitwise equal to the others on the same inputs:
 ``"monolithic"`` (:func:`repro_torch.core.fediac.aggregate_stack`, which
-holds several ``[N, d]`` temporaries) and ``"stream"``
+holds several ``[N, d]`` temporaries), ``"stream"``
 (:func:`repro_torch.core.stream_engine.aggregate_stream`, the same round
-in coordinate chunks with ``O(N·chunk)`` temporaries).  The reference's
-other engines are known names that raise ``NotImplementedError`` naming
-their ROADMAP item; their knobs (``devices``, ``axis``) come with them.
+in coordinate chunks with ``O(N·chunk)`` temporaries) and ``"sharded"``
+(:func:`repro_torch.core.shard_engine.aggregate_shard`, the round over
+coordinate shards, one per device).  The reference's ``"async"`` engine is
+a known name that raises ``NotImplementedError`` naming its ROADMAP item.
+The reference's ``axis`` knob names a jax mesh axis and has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -26,15 +29,19 @@ class EngineSpec:
     ``use_pallas`` (the reference's name) routes phase 2 of either engine
     through the fused CUDA kernel; it is the only switch for them.
     ``chunk`` is the stream engine's coordinates per chunk (0: its
-    ``DEFAULT_CHUNK``)."""
+    ``DEFAULT_CHUNK``); ``devices`` the sharded engine's number of
+    coordinate shards (0: one per visible CUDA device, or 1 on the CPU)."""
 
     name: str = "monolithic"
     chunk: int = 0
+    devices: int = 0
     use_pallas: bool = False
 
     def __post_init__(self):
-        require(isinstance(self.chunk, int) and not isinstance(self.chunk, bool)
-                and self.chunk >= 0, "chunk", "a non-negative int", self.chunk)
+        for field in ("chunk", "devices"):
+            v = getattr(self, field)
+            require(isinstance(v, int) and not isinstance(v, bool) and v >= 0,
+                    field, "a non-negative int", v)
 
 
 def _run_monolithic(spec, u_stack, cfg, key, a):
@@ -47,10 +54,16 @@ def _run_stream(spec, u_stack, cfg, key, a):
     return aggregate_stream(u_stack, cfg, key, a=a, chunk=spec.chunk or None)
 
 
-_RUNNERS = {"monolithic": _run_monolithic, "stream": _run_stream}
+def _run_sharded(spec, u_stack, cfg, key, a):
+    from .shard_engine import aggregate_shard
+    return aggregate_shard(u_stack, cfg, key, a=a,
+                           devices=spec.devices or None)
+
+
+_RUNNERS = {"monolithic": _run_monolithic, "stream": _run_stream,
+            "sharded": _run_sharded}
 #: the reference's other engines, with the ROADMAP item that ports each
-_NOT_PORTED = {"sharded": "A8: distributed",
-               "async": "A9: packet dataplane"}
+_NOT_PORTED = {"async": "A9: packet dataplane"}
 
 
 def _check_name(name: str) -> None:

@@ -72,6 +72,10 @@ class FediACConfig:
     block_size: int = 4096        # block compaction granule
     alpha: float = -1.0           # Def. 1 power-law exponent of threshold votes
     work_dtype: str = "float32"   # allreduce: dtype of the d-sized tensors
+    granularity: str = "model"    # model: one vote over the whole raveled
+                                  # update (paper-faithful); tensor: one
+                                  # aggregation per parameter tensor (the
+                                  # zoo's largest configs)
     engine: "str | engines.EngineSpec" = "monolithic"  # name or EngineSpec
     consensus_floor: int = 0      # dense-mask fallback floor (0 = off)
     robust_agg: str = "sum"       # sum | trim | median
@@ -93,6 +97,7 @@ class FediACConfig:
         check_choice("compact_mode", self.compact_mode, ("topk", "block"))
         check_choice("vote_wire", self.vote_wire, ("count", "packed"))
         check_choice("work_dtype", self.work_dtype, tuple(WORK_DTYPES))
+        check_choice("granularity", self.granularity, ("model", "tensor"))
         check_choice("robust_agg", self.robust_agg, robust_agg.ROBUST_AGG_MODES)
         check_interval("trim_frac", self.trim_frac, 0.0, 0.5, hi_open=True)
         engines.get(self.engine)   # registered name or EngineSpec

@@ -5,16 +5,20 @@ holds several ``[N, d]`` temporaries at once: the Gumbel scores, the vote
 masks, the uniform draw and, since threefry runs as int64 tensor
 arithmetic, its 8-byte counters and lanes.  This engine runs the same
 round with smaller temporaries and gives the same bits.  Threshold votes
-and phase 2 hold ``O(N·chunk)`` temporaries beyond the inputs and outputs;
-top-k phase 1 holds ``O(rows·d)``, since each client's selection draws and
-sorts whole ``[d]`` rows (at d ~ 1e8 its int64 draw of one row sets the
-round's peak; PERF.md §7).  It gives the same bits for three reasons:
+and phase 2 hold ``O(N·chunk)`` temporaries beyond the inputs and outputs.
+Top-k phase 1 holds one block of rows' float32 scores and their sort,
+``O(rows·d)``, plus the draw's int64 temporaries of one piece
+(:data:`.voting.SCORE_PIECE` elements): each client's selection sorts a
+whole ``[d]`` row, but the row is drawn in pieces
+(:func:`.voting.vote_scores`).  It gives the same bits for three
+reasons:
 
 1. integer vote sums are associative.  Threshold votes are local to a
    chunk once each client's max |u| is known (one extra pass); top-k votes
    need each client's global selection, so phase 1 goes over the *client*
    axis instead, a block of ``[d]`` rows at a time (as many as fit
-   ``N·chunk`` elements, one at least), with the monolithic selection;
+   ``N·chunk`` elements, one at least), with the monolithic selection on
+   scores drawn piece by piece;
 2. the consensus plan is built once from the counts
    (:func:`.round_plan.build_round_plan`), with the inverse ``slot`` map so
    that a chunk finds its coordinates' compact-buffer slots;
@@ -48,7 +52,7 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.validate import require
 
-from . import compaction, prng, robust_agg, voting
+from . import compaction, prng, robust_agg, selection, voting
 from .fediac import plan_wants_dense_mask, round_traffic
 from .quantize import dequantize, quantize, scale_factor
 from .round_plan import RoundPlan, build_round_plan
@@ -104,9 +108,10 @@ def _phase1_topk(u_stack: torch.Tensor, cfg, vote_keys: torch.Tensor,
                  chunk: int):
     """Gumbel top-k votes over blocks of client rows: a row's k-th score
     is global over d, so this phase goes over the clients, as many rows a
-    step as fit one chunk's N·chunk elements (one row at least).  Client
-    i's draw under its own key is row i of the monolithic ``[N, d]``
-    draw, and the int32 counts add up in any grouping."""
+    step as fit one chunk's N·chunk elements (one row at least), its
+    scores drawn in pieces.  Client i's draw under its own key is row i
+    of the monolithic ``[N, d]`` draw, and the int32 counts add up in any
+    grouping."""
     n, d = u_stack.shape
     k = min(cfg.k(d), d)
     rows = max(1, n * chunk // d)
@@ -114,7 +119,10 @@ def _phase1_topk(u_stack: torch.Tensor, cfg, vote_keys: torch.Tensor,
     m = torch.zeros((), dtype=u_stack.dtype, device=u_stack.device)
     for i in range(0, n, rows):
         block = u_stack[i:i + rows]
-        counts += voting.vote_counts_stack(block, k, vote_keys[i:i + rows])
+        scores = voting.vote_scores(block, vote_keys[i:i + rows],
+                                    piece=voting.SCORE_PIECE)
+        counts += selection.topk_counts_stack(scores, k)
+        del scores
         m = torch.maximum(m, block.abs().max())
     return counts, m
 

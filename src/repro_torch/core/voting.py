@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from . import prng, selection, xla_math
+from . import prng, selection, streams, xla_math
 
 __all__ = ["vote_mask", "vote_scores", "vote_mask_stack", "vote_counts_stack",
            "vote_tau", "threshold_vote_mask", "chunk_scores",
@@ -71,15 +71,49 @@ def threshold_vote_mask(u: torch.Tensor, k: int, m: torch.Tensor,
     return (u.abs().to(torch.float32) >= tau.unsqueeze(-1)).to(torch.uint8)
 
 
-def vote_scores(u: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
+#: elements per piece of a piecewise :func:`vote_scores` draw: about 0.7
+#: GiB of int64 threefry temporaries.  Each piece runs ~480 small kernels,
+#: so a piece must be this large for the device, not the launches, to set
+#: its time: pieces of 262,144 elements left an H100 idle 84% of a
+#: d ~ 1e8 stream round (PERF.md §6)
+SCORE_PIECE = 1 << 23
+
+
+def vote_scores(u: torch.Tensor, key: torch.Tensor, start: int = 0,
+                total: int | None = None, *,
+                piece: int | None = None) -> torch.Tensor:
     """Gumbel-perturbed log-magnitude scores whose top-k is the vote.
 
-    ``u`` is ``[d]`` with one key, or ``[N, d]`` with ``keys[N, 2]``.  The
-    ``log`` is XLA's (:mod:`.xla_math`), so the scores equal the
-    reference's bit for bit.
+    ``u`` is ``[d]`` with one key, or ``[N, d]`` with ``keys[N, 2]``.  Its
+    columns are ``[start, start + d)`` of a ``total``-wide vote (the whole
+    vote by default), so a chunk or a shard of the vector gets the whole
+    vector's scores there.  The ``log`` is XLA's (:mod:`.xla_math`), so
+    the scores equal the reference's bit for bit.
+
+    ``piece`` (elements, e.g. :data:`SCORE_PIECE`) draws the noise in
+    column pieces of about that many elements
+    (:func:`.streams.gumbel_block`), so that the draw's int64 threefry
+    temporaries are one piece's, not ``u``'s; the sum is elementwise, so
+    the pieces give the whole draw's bits.  ``None`` draws at once.
     """
+    width = u.shape[-1]
+    total = width if total is None else total
+    cols = width if piece is None else max(
+        1, piece * width // max(u.numel(), 1))
+    if cols >= width:
+        return _scores(u, key, start, total)
+    out = torch.empty(u.shape, dtype=torch.float32, device=u.device)
+    for s in range(0, width, cols):
+        out[..., s:s + cols] = _scores(u[..., s:s + cols], key, start + s,
+                                       total)
+    return out
+
+
+def _scores(u, key, start: int, total: int) -> torch.Tensor:
     logw = xla_math.log(torch.clamp_min(u.abs().to(torch.float32), 1e-30))
-    return logw + prng.gumbel(key, (u.shape[-1],))
+    if start == 0 and u.shape[-1] == total:
+        return logw + prng.gumbel(key, (total,))
+    return logw + streams.gumbel_block(key, start, u.shape[-1], total)
 
 
 def vote_mask(u: torch.Tensor, k: int, key: torch.Tensor) -> torch.Tensor:

@@ -61,10 +61,10 @@ def cuda_device() -> torch.device:
     return torch.device("cuda")
 
 
-def _rank_main(fn, rank, world_size, init_method, args, results):
+def _rank_main(fn, rank, world_size, init_method, backend, args, results):
     try:
         torch.set_num_threads(1)   # the ranks share the host's cores
-        dist.init_process_group("gloo", init_method=init_method, rank=rank,
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
                                 world_size=world_size)
         try:
             out = fn(rank, world_size, *args)
@@ -77,11 +77,11 @@ def _rank_main(fn, rank, world_size, init_method, args, results):
 
 
 def run_ranks(fn, world_size: int, init_method: str, *args,
-              timeout: float = 600.0) -> list:
+              timeout: float = 600.0, backend: str = "gloo") -> list:
     """Run ``fn(rank, world_size, *args)`` in ``world_size`` processes
-    (``spawn`` start method) joined into one gloo process group at
-    ``init_method``, a ``file://<path>`` store in a fresh directory (no
-    port to collide with another run).
+    (``spawn`` start method) joined into one process group (``backend``,
+    gloo unless told otherwise) at ``init_method``, a ``file://<path>``
+    store in a fresh directory (no port to collide with another run).
 
     ``fn`` must be importable by the children and return something
     picklable.  Returns the results in rank order.  If a rank raises, or
@@ -92,7 +92,8 @@ def run_ranks(fn, world_size: int, init_method: str, *args,
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main,
-                         args=(fn, r, world_size, init_method, args, results),
+                         args=(fn, r, world_size, init_method, backend, args,
+                               results),
                          daemon=True)
              for r in range(world_size)]
     for p in procs:
@@ -127,22 +128,25 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def allreduce_worker(rank: int, world_size: int, cases) -> list:
-    """One client of ``fediac_allreduce`` / ``dense_allreduce`` on the CPU.
+    """One client of an allreduce on the CPU: ``fediac_allreduce`` /
+    ``dense_allreduce`` (:mod:`repro_torch.core.fediac`) or a mesh baseline
+    (:mod:`repro_torch.core.mesh_baselines`).
 
     ``cases`` is a list of ``(fn_name, cfg_kwargs, u[N, d], residual[N, d],
     key[2])`` with numpy arrays; ``cfg_kwargs`` may hold ``kernels`` (the
-    engine's ``use_pallas``).  Returns ``(mean, new_residual)`` of this
-    rank per case, as numpy.
+    engine's ``use_pallas``), and an empty one passes no config.  Returns
+    ``(mean, new_residual)`` of this rank per case, as numpy.
     """
-    from repro_torch.core import engines, fediac
+    from repro_torch.core import engines, fediac, mesh_baselines
     out = []
     for fn_name, kw, u, res, key in cases:
         cfg = None
-        if fn_name == "fediac_allreduce":
+        if kw:
             kw = dict(kw)
             spec = engines.EngineSpec(use_pallas=kw.pop("kernels", False))
             cfg = fediac.FediACConfig(**kw, engine=spec)
-        mean, new_res = getattr(fediac, fn_name)(
+        fn = getattr(fediac, fn_name, None) or getattr(mesh_baselines, fn_name)
+        mean, new_res = fn(
             torch.from_numpy(u[rank]), torch.from_numpy(res[rank]),
             key_to_torch(key), cfg)
         out.append((_host(mean), _host(new_res)))

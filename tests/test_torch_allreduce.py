@@ -1,4 +1,5 @@
-"""The port's ``fediac_allreduce`` and ``dense_allreduce`` against the
+"""The port's ``fediac_allreduce`` and ``dense_allreduce``, and the mesh
+baselines ``switchml_allreduce`` and ``topk_allreduce``, against the
 reference's, bitwise, on every client.
 
 Port side: 4 gloo ranks on the CPU, spawned by ``repro_torch.testing``
@@ -56,6 +57,12 @@ CASES = {
     "packed-tb-kernels-bf16": _case("packed", "tb", True,
                                     work_dtype="bfloat16"),
     "dense": ("dense_allreduce", 70_001, {}),
+    # the mesh baselines: 12 bits take the reference's int16 wire at N = 4,
+    # 14 bits its int32 one
+    "switchml-12": ("switchml_allreduce", 70_001, {"bits": 12}),
+    "switchml-14": ("switchml_allreduce", 70_001, {"bits": 14}),
+    "topk": ("topk_allreduce", 70_001, {"k_frac": 0.05}),
+    "topk-default": ("topk_allreduce", 70_001, {}),
 }
 
 _REFERENCE = r"""
@@ -65,7 +72,7 @@ import numpy as np
 import jax, jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 from repro.compat import make_mesh, shard_map
-from repro.core import fediac
+from repro.core import fediac, mesh_baselines
 
 tmp, shard, shards = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 cases = json.load(open(f"{tmp}/cases.json"))
@@ -75,8 +82,9 @@ mesh = make_mesh((4,), ("data",))
 out = {}
 for name, (fn_name, d, kw) in cases.items():
     kw = dict(kw)
-    cfg = fediac.FediACConfig(use_pallas=kw.pop("kernels", False), **kw)
-    fn = getattr(fediac, fn_name)
+    cfg = (fediac.FediACConfig(use_pallas=kw.pop("kernels", False), **kw)
+           if kw else None)
+    fn = getattr(fediac, fn_name, None) or getattr(mesh_baselines, fn_name)
 
     @partial(shard_map, mesh=mesh, in_specs=(P("data"), P("data"), P()),
              out_specs=(P("data"), P("data")), check_vma=False)
@@ -150,7 +158,8 @@ def test_allreduce_bitwise_on_every_rank(results, name):
                                       err_msg=f"{name}: residual of rank {rank}")
 
 
-@pytest.mark.parametrize("name", [n for n in CASES if n != "dense"])
+@pytest.mark.parametrize("name", [n for n in CASES if n != "dense"
+                                  and not n.startswith("switchml")])
 def test_allreduce_conserves_what_left_the_clients(results, name):
     fn, d, kw = CASES[name]
     u, r = _inputs(d)
@@ -159,6 +168,21 @@ def test_allreduce_conserves_what_left_the_clients(results, name):
     # bf16 working tensors round u + r and the residual to 8 bits
     atol = 0.1 if kw.get("work_dtype") == "bfloat16" else 1e-5
     np.testing.assert_allclose(port[0][0], left, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("name,step_bits", [("switchml-14", 10),
+                                            ("switchml-12", 8)])
+def test_switchml_is_the_dense_mean_within_a_step(results, name, step_bits):
+    """SwitchML keeps no residual, and its mean is the dense mean within
+    the reference's bound: max|u| / 2**10 at 14 bits
+    (tests/test_distributed.py), four times that at 12 bits."""
+    fn, d, kw = CASES[name]
+    u, r = _inputs(d)
+    port, _, _ = results[name]
+    dense = (u + r).mean(0)
+    for mean, res in port:
+        assert not res.any()
+        assert np.abs(mean - dense).max() < np.abs(u + r).max() / 2 ** step_bits
 
 
 def test_allreduce_rejects_robust_closes():

@@ -141,6 +141,29 @@ def test_stream_round_on_card_equals_stack(cuda_device, kernels, vote_mode,
         assert _same(a, b)
 
 
+@pytest.mark.parametrize("devices", [3, 8])
+@pytest.mark.parametrize("vote_mode,compact_mode", [
+    ("topk", "topk"), ("topk", "block"), ("threshold", "topk"),
+    ("threshold", "block")])
+def test_shard_round_on_card_equals_stack(cuda_device, vote_mode,
+                                          compact_mode, devices):
+    """The sharded engine on the card (every shard on the one card):
+    bitwise its monolithic round, at a width that leaves ragged shards
+    and shards wider than the phase-2 chunk."""
+    rng = np.random.default_rng(6)
+    u = torch.from_numpy((rng.standard_normal((8, 900_001)) ** 3)
+                         .astype(np.float32)).to(cuda_device)
+    cfg = FediACConfig(vote_mode=vote_mode, compact_mode=compact_mode,
+                       block_size=1024)
+    key = prng.PRNGKey(4, device=cuda_device)
+    shard = aggregate_round(u, FediACConfig(
+        vote_mode=vote_mode, compact_mode=compact_mode, block_size=1024,
+        engine=EngineSpec(name="sharded", devices=devices)), key)
+    mono = aggregate_round(u, cfg, key)
+    for a, b in zip(shard[:3], mono[:3]):
+        assert a.device == b.device and _same(a, b)
+
+
 def test_fl_loop_on_card_matches_cpu(cuda_device):
     data = classification(n=1200, dim=16, seed=0)
     train, test = data.test_split(0.2)

@@ -149,7 +149,7 @@ def test_robust_closes_run_in_stacked_round(override):
     assert bool(torch.isfinite(delta).all() and torch.isfinite(res).all())
 
 
-@pytest.mark.parametrize("name", ["sharded", "async"])
+@pytest.mark.parametrize("name", ["async"])
 def test_unported_engines_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         engines.get(name)

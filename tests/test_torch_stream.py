@@ -197,6 +197,33 @@ def test_stream_boundary_ties_match_reference():
     _assert_rounds_equal(got, mono)
 
 
+def test_phase1_topk_draws_rows_in_pieces(monkeypatch):
+    """Top-k phase 1 at a chunk much smaller than d: one row a step
+    (8 · 4,096 < 70,001), each row's scores drawn in pieces of 4,096
+    (the piece size set down to the chunk); the counts and the whole
+    round bitwise the reference's stream round and the port's monolithic
+    round."""
+    from repro_torch.core import streams, voting
+    monkeypatch.setattr(voting, "SCORE_PIECE", 4096)
+    pieces = []
+    real = streams.gumbel_block
+
+    def spy(keys, start, size, total, **kw):
+        pieces.append((keys.shape[0], start, size))
+        return real(keys, start, size, total, **kw)
+
+    u = _u(8, 70_001, seed=9)
+    with monkeypatch.context() as m:
+        m.setattr(streams, "gumbel_block", spy)
+        got = stream_engine.aggregate_stream(
+            torch.from_numpy(u), _cfg(fediac), key_to_torch(KEY), chunk=4096)
+    row = [(1, s, min(4096, 70_001 - s)) for s in range(0, 70_001, 4096)]
+    assert pieces == row * 8
+    _, mono, ref = _port_and_ref(u, 4096)
+    _assert_rounds_equal(got, ref)
+    _assert_rounds_equal(got, mono)
+
+
 def test_stream_rejects_chunked_votes():
     with pytest.raises(NotImplementedError, match="vote_chunk"):
         stream_engine.aggregate_stream(torch.from_numpy(_u(2, 64)),
