@@ -61,7 +61,23 @@ Phases, each of which raises (and exits non-zero) on failure:
    3), its phase 1 timed, profiled, its peak above its inputs and outputs
    and one shard's working set; then the shard, stream and monolithic
    rounds timed at d = 9,994,240;
-9. allreduce path: 8 ranks on the one card over gloo (spawned once), each
+9. packet path (``netsim/``, the FediAC round as packet streams through
+   the switches): the lossless packet round at N = 32, d = 1,000,000,
+   kernels on, in the four vote x compact modes and at vote_chunk 4,
+   each bitwise its ``aggregate_stack``; the lossy round (5% loss, half
+   the clients, a quarter straggling, two leaves, a 32,768-slot bank, a
+   deadline at the median lossless vote arrival) against the same round
+   on the CPU, bitwise but the mean wait (1e-6); the stream engine
+   (kernels on) and the sharded engine (8 shards) under that dataplane
+   at N = 8, d = 9,994,240, bitwise the monolithic packet round; the
+   reference's dataplane FL task (N = 10, 12 rounds) on packets:
+   lossless equal to the memory transport, lossy card against CPU,
+   killed at round 6 and resumed, the five baselines one round each;
+   the B1 and B2 counts zeroed just before each packet run and read just
+   after, tallied by shape; then the packet round beside
+   ``aggregate_stack``, the timeline alone, the idle share and the
+   launches per round;
+10. allreduce path: 8 ranks on the one card over gloo (spawned once), each
    one client of ``fediac_allreduce`` at d = 12,500,992 (one device's
    slice of the reference's d ~ 1e8 sort-free scale cell) on the packed
    wire, threshold/block (``vote_pack`` + ``popcount``) and topk/topk
@@ -74,13 +90,13 @@ Phases, each of which raises (and exits non-zero) on failure:
    d = 1,000,000; then round and collective times; then one NCCL rank
    (world size 1) running the packed top-k allreduce and both mesh
    baselines, each bitwise against the same call on a one-rank gloo group;
-10. timing: each kernel, its plain version and its memory bound at the main
+11. timing: each kernel, its plain version and its memory bound at the main
    paths' shapes (``gather_quant`` at each of its shapes), and whole
    rounds.  A kernel's ``ms`` is CUDA-event time per wrapper call (it
    includes the host's launch work whenever that is slower than the
    kernel); ``device_ms`` is the kernel alone, per launch of a replayed
    CUDA graph of back-to-back calls;
-11. serve path: Qwen3-0.6B at full width and depth (28 layers, random
+12. serve path: Qwen3-0.6B at full width and depth (28 layers, random
    weights from ``PRNGKey(0)``) prefills 2 requests of 32,768 tokens
    through ``make_serve_step`` (the counts zeroed just before; B6's bf16
    tensor-core instance must launch once per layer), its logits finite;
@@ -1421,6 +1437,417 @@ def phase_shard(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The packet path: FediAC rounds as packet streams through the switches
+# (netsim/batched.py's round core behind PacketTransport), on every engine
+# and in the FL loop
+# ---------------------------------------------------------------------------
+
+#: the lossy dataplane of the packet phase's checks: 5% loss, half the
+#: clients sampled, a quarter of them straggling, two leaf switches and a
+#: register bank smaller than the round's 50,000-slot consensus buffer (two
+#: passes); the vote deadline is set per shape (_vote_median)
+PACKET_NET = dict(loss=0.05, participation=0.5, straggler_frac=0.25,
+                  n_leaves=2, memory_slots=32_768, seed=9)
+#: the card's packet round against the CPU's: the mean wait sums float32
+#: waits in another order on each device, within 1e-6 relative; every other
+#: output, the clock included, is held bitwise
+PACKET_TIME_RTOL = 1e-6
+#: the reference's dataplane FL task (src/repro/sweep/grids.py:84-93): fediac
+#: a = 2, 12 bits, 10 clients, 3 local steps, Dirichlet beta 0.5, 3,000
+#: samples of dimension 32, a quarter held out, 12 rounds
+PACKET_FL_ROUNDS, PACKET_FL_KILL = 12, 6
+PACKET_FL_LOSSY = dict(loss=0.05, participation=0.5)
+PACKET_TIME_ITERS = 3
+
+
+def _packet_cfg(vote_mode="topk", compact_mode="topk", vote_chunk=1,
+                engine="monolithic", kernels=True, devices=0):
+    from repro_torch.core.engines import EngineSpec
+    from repro_torch.core.fediac import FediACConfig
+    return FediACConfig(vote_mode=vote_mode, compact_mode=compact_mode,
+                        vote_chunk=vote_chunk,
+                        engine=EngineSpec(name=engine, devices=devices,
+                                          use_pallas=kernels))
+
+
+def _vote_median(n: int, d: int, seed: int, round_idx: int = 0,
+                 local_train_s: float = 0.1) -> float:
+    """The median arrival of the vote packets of the lossless round (every
+    client sampled, none straggling) under net seed ``seed``: a deadline
+    there cuts about half of them."""
+    from repro_torch.core import prng
+    from repro_torch.core.fediac import FediACConfig, round_traffic
+    from repro_torch.netsim.policies import net_round_key
+    from repro_torch.netsim.timeline import poisson_arrivals
+    from repro_torch.switch import client_rates, n_packets
+    p1 = n_packets(round_traffic(FediACConfig(), d).phase1_bytes)
+    k_arr1 = prng.split(net_round_key(seed, round_idx, device=DEV), 6)[2]
+    arr = poisson_arrivals(k_arr1, client_rates(n, seed), p1, local_train_s)
+    return float(arr.reshape(-1).sort().values[arr.numel() // 2])
+
+
+@contextlib.contextmanager
+def _quant_tally(by_kernel: dict):
+    """Tally the launches of B1 (``gather_quant``) and B2 (``stoch_quant``)
+    by operand shape while the block runs, as :func:`_b1_tally` does B1's."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gather_quant import gather_quant
+    from repro_torch.kernels.stoch_quant import stoch_quant
+
+    def tallied(name, fn):
+        def call(u, *args):
+            before = fn.launches
+            res = fn(u, *args)
+            rose = fn.launches - before
+            if rose:
+                shapes = by_kernel.setdefault(name, {})
+                k = str(list(u.shape))
+                shapes[k] = shapes.get(k, 0) + rose
+            return res
+        return call
+
+    ops.gather_quant = tallied("gather_quant", gather_quant)
+    ops.stoch_quant = tallied("stoch_quant", stoch_quant)
+    try:
+        yield
+    finally:
+        ops.gather_quant, ops.stoch_quant = gather_quant, stoch_quant
+
+
+def _packet_round(cfg, net, u, key, round_idx=0):
+    from repro_torch.netsim import PacketTransport
+    return PacketTransport("fediac", {"cfg": cfg}, net=net).round(
+        u, None, key, round_idx)
+
+
+def _packet_gates(where, got, want, *, times_exact=True) -> dict:
+    """``got``'s packet round against ``want``'s: delta, residuals, vote
+    counts, masks, the integer statistics, phase 1's clock and the upload
+    bytes bitwise; the wall-clock and phase 2's clock bitwise when
+    ``times_exact`` (else within PACKET_TIME_RTOL), the mean wait within
+    PACKET_TIME_RTOL.  Returns the relative gaps of the float times."""
+    import numpy as np
+    check(same_bits(got.delta, want.delta)
+          and same_bits(got.residuals, want.residuals),
+          f"{where}: delta / residuals differ")
+    for k in ("vote_counts", "participants", "uploaders"):
+        a, b = got.stats[k], want.stats[k]
+        check(a.shape == b.shape and bool(np.array_equal(a, b)),
+              f"{where}: {k} differ")
+    for k in ("votes_lost", "stragglers", "retransmissions", "passes",
+              "peak_live_slots", "aggregation_ops", "phase1_s"):
+        check(got.stats[k] == want.stats[k],
+              f"{where}: {k} {got.stats[k]} != {want.stats[k]}")
+    check(got.upload_bytes == want.upload_bytes
+          and got.n_active == want.n_active and got.traffic == want.traffic
+          and got.load == want.load, f"{where}: bytes / uploaders differ")
+    gaps = {}
+    for k, a, b in (("wall_clock_s", got.wall_clock_s, want.wall_clock_s),
+                    ("phase2_s", got.stats["phase2_s"],
+                     want.stats["phase2_s"]),
+                    ("mean_wait_s", got.stats["mean_wait_s"],
+                     want.stats["mean_wait_s"])):
+        gaps[k] = abs(a - b) / max(abs(b), 1e-30)
+        exact = times_exact and k != "mean_wait_s"
+        check(a == b if exact else gaps[k] <= PACKET_TIME_RTOL,
+              f"{where}: {k} {a!r} vs {b!r}")
+    return gaps
+
+
+def _close_clock(a, b) -> bool:
+    """Two FL runs' cumulative simulated clocks within PACKET_TIME_RTOL."""
+    return len(a) == len(b) and all(
+        abs(x - y) <= PACKET_TIME_RTOL * abs(y) for x, y in zip(a, b))
+
+
+def _packet_fl_task():
+    from repro_torch.data import classification, partition_dirichlet
+    data = classification(n=3000, dim=32, n_classes=10, seed=0)
+    train, test = data.test_split(0.25)
+    return partition_dirichlet(train, 10, beta=0.5, seed=0), test
+
+
+def _packet_fl_cfg(transport="packet", aggregator="fediac", rounds=None,
+                   **net_kw):
+    from repro_torch.core.engines import EngineSpec
+    from repro_torch.core.fediac import FediACConfig
+    from repro_torch.netsim import NetConfig
+    from repro_torch.training.fl_loop import FLConfig
+    agg = ({"cfg": FediACConfig(a=2, bits=12)} if aggregator == "fediac"
+           else {"bits": 12} if aggregator == "switchml" else {})
+    return FLConfig(n_clients=10, rounds=rounds or PACKET_FL_ROUNDS,
+                    local_steps=3, aggregator=aggregator, agg_kwargs=agg,
+                    engine=(EngineSpec(use_pallas=True)
+                            if aggregator == "fediac" else None),
+                    transport=transport,
+                    net=NetConfig(**net_kw) if transport == "packet" else None)
+
+
+def _timeline_only(net, n, d, key, rates):
+    """The packet round's timeline alone at the round's shapes: phase 1's
+    vote arrivals, loss, deadline and drain, phase 2's reliable upload
+    through the windows and leaves (every client an uploader)."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.core.fediac import round_traffic
+    from repro_torch.netsim.batched import reliable_upload
+    from repro_torch.netsim.hierarchy import leaf_assignment
+    from repro_torch.netsim.timeline import (_masked_drain, deadline_mask,
+                                             lose_packets, poisson_arrivals,
+                                             service_time)
+    from repro_torch.switch import SwitchProfile, n_packets
+    tr = round_traffic(_packet_cfg(), d)
+    p1 = n_packets(tr.phase1_bytes, net.mtu)
+    ks = prng.split(prng.fold_in(key, 0), 6)
+    svc = torch.tensor(service_time(SwitchProfile.high()), device=DEV)
+    start = torch.full((n,), 0.1, device=DEV)
+    arr1 = poisson_arrivals(ks[2], rates, p1, start)
+    deliv = lose_packets(ks[3], arr1.shape, net.loss)
+    if net.vote_deadline_s is not None:
+        deliv = deliv & deadline_mask(arr1, net.vote_deadline_s)
+    st1 = _masked_drain(torch.where(deliv, arr1, float("inf")), svc)
+    return reliable_upload(
+        ks[4], ks[5], rates, st1.completion_s, tr.selected, tr.phase2_bytes,
+        leaf_assignment(n, net.n_leaves), svc, loss=net.loss,
+        rto_s=net.rto_s, max_retries=net.max_retries,
+        memory_slots=net.memory_slots, n_leaves=net.n_leaves, mtu=net.mtu,
+        not_before=st1.completion_s)
+
+
+def phase_packet(card: str) -> dict:
+    """The packet dataplane on the card: (a) the lossless packet round at
+    N_CLIENTS x D in all four vote x compact modes with the kernels on, and
+    at vote_chunk 4 (B2), each bitwise its ``aggregate_stack``; (b) the
+    lossy round (PACKET_NET, a deadline at the median vote arrival) card
+    against CPU; (c) the stream engine (kernels on) and the sharded engine
+    (8 shards, kernels off) under the lossy dataplane at 8 x
+    SHARD_TIMING_D, bitwise the monolithic packet round; (d) the FL loop on
+    the packet transport: lossless equal to the memory transport, lossy
+    card against CPU, killed at round PACKET_FL_KILL and resumed, and the
+    five baselines one round each; (e) round times, the timeline's share,
+    the idle share and launches per round.  The B1 and B2 counts are zeroed
+    just before each packet run and read just after, tallied by shape."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import fediac, prng, stream_engine
+    from repro_torch.netsim import NetConfig
+    from repro_torch.switch import client_rates
+    from repro_torch.training.fl_loop import run_federated
+    counters = _counters()
+    tally = {}
+    out = {"card": card}
+
+    launches = {"gather_quant": 0, "stoch_quant": 0}
+
+    def counted(fn):
+        """``fn()`` with the B1 and B2 counts zeroed just before and read
+        just after, and their launches by shape; both added to the phase's
+        tallies."""
+        for name in launches:
+            counters[name].launches = 0
+        by_shape = {}
+        with _quant_tally(by_shape):
+            res = fn()
+        torch.cuda.synchronize()
+        rose = {name: counters[name].launches for name in launches}
+        for name, shapes in by_shape.items():
+            check(sum(shapes.values()) == rose[name],
+                  f"{name}: {rose[name]} launches, by shape {shapes}")
+            for k, v in shapes.items():
+                tally.setdefault(name, {})
+                tally[name][k] = tally[name].get(k, 0) + v
+        for name, v in rose.items():
+            launches[name] += v
+        return res, rose, by_shape
+
+    # -- (a) lossless, full width: bitwise aggregate_stack
+    t0 = time.perf_counter()
+    key = prng.PRNGKey(0, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    u = torch.randn(N_CLIENTS, D, device=DEV, generator=gen) ** 3
+    lossless = NetConfig()
+    cases = [(vm, cm, 1) for vm, cm in SHARD_MODES] + [("topk", "topk", 4)]
+    checked = []
+    for vm, cm, g in cases:
+        cfg = _packet_cfg(vm, cm, g)
+        got, rose, _ = counted(lambda: _packet_round(cfg, lossless, u, key))
+        want_b1 = int(g == 1 and cm == "topk")
+        want_b2 = int(g > 1)
+        check(rose == {"gather_quant": want_b1, "stoch_quant": want_b2},
+              f"packet {vm}/{cm} g={g}: launches {rose}")
+        delta, res, counts, traffic = fediac.aggregate_stack(u, cfg, key)
+        check(same_bits(got.delta, delta) and same_bits(got.residuals, res)
+              and bool((torch.from_numpy(got.stats["vote_counts"])
+                        == counts.cpu()).all()) and got.traffic == traffic,
+              f"packet {vm}/{cm} g={g} lossless != aggregate_stack at "
+              f"N={N_CLIENTS}, d={D}")
+        checked.append(f"{vm}/{cm} g={g}")
+        del got, delta, res, counts
+    out["lossless"] = {"n": N_CLIENTS, "d": D, "bitwise_vs_stack": checked,
+                       "seconds": time.perf_counter() - t0}
+    log(f"[packet] {card}: lossless packet rounds bitwise aggregate_stack "
+        f"at N={N_CLIENTS} d={D}: {checked}")
+
+    # -- (b) lossy: the card's round against the CPU's
+    t0 = time.perf_counter()
+    cfg = _packet_cfg()
+    deadline = _vote_median(N_CLIENTS, D, PACKET_NET["seed"], round_idx=1)
+    lossy = NetConfig(**PACKET_NET, vote_deadline_s=deadline)
+    card_r, _, _ = counted(lambda: _packet_round(cfg, lossy, u, key, 1))
+    free, _, _ = counted(lambda: _packet_round(
+        cfg, NetConfig(**PACKET_NET), u, key, 1))
+    missed = card_r.stats["votes_lost"] - free.stats["votes_lost"]
+    check(missed > 0, f"the deadline {deadline} s cut no vote packets")
+    check(card_r.stats["passes"] > 1 and 0 < card_r.n_active < N_CLIENTS,
+          f"lossy round: passes {card_r.stats['passes']}, "
+          f"{card_r.n_active} uploaders")
+    t_cpu = time.perf_counter()
+    cpu_r = _packet_round(cfg, lossy, u.cpu(), key.cpu(), 1)
+    t_cpu = time.perf_counter() - t_cpu
+    gaps = _packet_gates("lossy packet round card vs CPU", card_r, cpu_r,
+                         times_exact=False)
+    out["lossy"] = {
+        "n": N_CLIENTS, "d": D, "net": PACKET_NET, "vote_deadline_s": deadline,
+        "votes_missed_deadline": missed,
+        "votes_lost": card_r.stats["votes_lost"],
+        "uploaders": card_r.n_active, "passes": card_r.stats["passes"],
+        "retransmissions": card_r.stats["retransmissions"],
+        "wall_clock_s": card_r.wall_clock_s, "time_rel_gaps": gaps,
+        "cpu_round_s": t_cpu, "seconds": time.perf_counter() - t0}
+    log(f"[packet] {card}: lossy round card == CPU " + json.dumps(out["lossy"]))
+    del free, cpu_r
+
+    # -- (e, first half) times at N_CLIENTS x D
+    rates = torch.as_tensor(client_rates(N_CLIENTS, PACKET_NET["seed"]),
+                            dtype=torch.float32, device=DEV)
+    timing = {}
+    for name, net in (("lossless", lossless), ("lossy", lossy)):
+        pkt_ms = wall_ms(lambda: _packet_round(cfg, net, u, key, 1),
+                         iters=PACKET_TIME_ITERS)
+        rows = device_profile(lambda: _packet_round(cfg, net, u, key, 1),
+                              iters=1)
+        busy = sum(r[1] for r in rows)
+        timing[name] = {
+            "packet_round_ms": pkt_ms,
+            "timeline_ms": wall_ms(lambda: _timeline_only(net, N_CLIENTS, D,
+                                                          key, rates),
+                                   iters=PACKET_TIME_ITERS),
+            "device_ms": busy,
+            "idle_share": 1.0 - busy / pkt_ms if rows else None,
+            "device_launches": sum(r[2] for r in rows),
+            "top_kernels": [(nm[:60], ms, c) for nm, ms, c in rows[:6]]}
+        timing[name]["timeline_share"] = (timing[name]["timeline_ms"]
+                                          / pkt_ms)
+    timing["aggregate_stack_ms"] = wall_ms(
+        lambda: fediac.aggregate_stack(u, cfg, key), iters=PACKET_TIME_ITERS)
+    out["timing"] = timing
+    log(f"[packet] {card}: times at N={N_CLIENTS} d={D} "
+        + json.dumps(timing))
+    del u, card_r
+    _free_card()
+
+    # -- (c) the stream and sharded engines under the lossy dataplane
+    t0 = time.perf_counter()
+    n, d = SHARD_N, SHARD_TIMING_D
+    u8 = _shard_stack(d, seed=3)
+    net8 = NetConfig(**PACKET_NET, vote_deadline_s=_vote_median(
+        n, d, PACKET_NET["seed"], round_idx=2))
+    engines_checked = []
+    for engine, kernels, devs in (("stream", True, 0),
+                                  ("sharded", False, SHARD_DEVICES)):
+        mono = _packet_round(_packet_cfg(kernels=kernels), net8, u8, key, 2)
+        got, rose, by_shape = counted(lambda: _packet_round(
+            _packet_cfg(engine=engine, kernels=kernels, devices=devs), net8,
+            u8, key, 2))
+        _packet_gates(f"packet {engine} engine vs monolithic N={n} d={d}",
+                      got, mono)
+        want = (_chunk_shapes(n, d, stream_engine.DEFAULT_CHUNK) if kernels
+                else {})
+        check(by_shape.get("gather_quant", {}) == want
+              and rose["stoch_quant"] == 0,
+              f"packet {engine}: B1 launched by shape {by_shape}, not {want}")
+        engines_checked.append(f"{engine} (kernels {'on' if kernels else 'off'}"
+                               f", uploaders {got.n_active})")
+        del mono, got
+    out["engines"] = {"n": n, "d": d, "bitwise_vs_monolithic": engines_checked,
+                      "seconds": time.perf_counter() - t0}
+    log(f"[packet] {card}: N={n} d={d}: {engines_checked} bitwise the "
+        "monolithic packet round")
+    del u8
+    _free_card()
+
+    # -- (d) the FL loop on the packet transport
+    t0 = time.perf_counter()
+    clients, test = _packet_fl_task()
+
+    def run(cfg, dev=DEV, **kw):
+        return run_federated(clients, test, cfg, device=dev, **kw)
+
+    h_pkt, rose, _ = counted(lambda: run(_packet_fl_cfg()))
+    check(rose["gather_quant"] == PACKET_FL_ROUNDS,
+          f"FL on packets launched B1 {rose['gather_quant']} times")
+    h_mem = run(_packet_fl_cfg(transport="memory"))
+    check(h_pkt.acc == h_mem.acc and h_pkt.loss == h_mem.loss
+          and h_pkt.traffic_mb == h_mem.traffic_mb,
+          "FL on the lossless packet transport != the memory transport")
+    rec = _Recorder()
+    h_lossy, _, _ = counted(lambda: run(_packet_fl_cfg(**PACKET_FL_LOSSY),
+                                        wrap_transport=rec.wrap))
+    h_cpu = run(_packet_fl_cfg(**PACKET_FL_LOSSY), dev="cpu")
+    h_fed = run(_packet_fl_cfg(**PACKET_FL_LOSSY), dev="cpu",
+                wrap_transport=lambda inner: _CardInputs(inner, "packet",
+                                                         rec.rounds))
+    for where, h in (("independent", h_cpu), ("fed the card's inputs",
+                                              h_fed)):
+        check(_close_clock(h.wall_clock, h_lossy.wall_clock)
+              and h.traffic_mb == h_lossy.traffic_mb,
+              f"lossy packet FL card vs CPU ({where}): clock / traffic")
+        gap = max(max(abs(a - b) for a, b in zip(h.acc, h_lossy.acc)),
+                  max(abs(a - b) for a, b in zip(h.loss, h_lossy.loss)))
+        check(gap <= FL_TOL, f"lossy packet FL card vs CPU ({where}): "
+              f"acc/loss gap {gap}")
+        out.setdefault("fl_gaps", {})[where] = gap
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "packet.ckpt")
+        killed, _, _ = counted(lambda: run(dataclasses.replace(
+            _packet_fl_cfg(rounds=PACKET_FL_KILL, **PACKET_FL_LOSSY),
+            ckpt_path=path)))
+        resumed, _, _ = counted(lambda: run(dataclasses.replace(
+            _packet_fl_cfg(**PACKET_FL_LOSSY), ckpt_path=path, resume=True)))
+    check(len(killed) == PACKET_FL_KILL and _same_history(resumed, h_lossy),
+          "lossy packet FL killed and resumed != the uninterrupted run")
+    baselines = {}
+    for name in BASELINES:
+        cfg_b = _packet_fl_cfg(aggregator=name, rounds=1, **PACKET_FL_LOSSY)
+        h_b = run(cfg_b)
+        h_bc = run(cfg_b, dev="cpu")
+        check(_close_clock(h_b.wall_clock, h_bc.wall_clock)
+              and h_b.traffic_mb == h_bc.traffic_mb
+              and abs(h_b.acc[0] - h_bc.acc[0]) <= FL_TOL
+              and all(math.isfinite(x) for x in h_b.loss),
+              f"packet FL {name}: card vs CPU")
+        baselines[name] = {"wall_clock_s": h_b.wall_clock[0],
+                           "traffic_mb": h_b.traffic_mb[0]}
+    out["fl"] = {"rounds": PACKET_FL_ROUNDS, "lossless_acc": h_pkt.acc,
+                 "lossless_wall_clock": h_pkt.wall_clock,
+                 "memory_wall_clock": h_mem.wall_clock,
+                 "lossy_acc": h_lossy.acc, "lossy_wall_clock":
+                 h_lossy.wall_clock, "lossy_traffic_mb": h_lossy.traffic_mb,
+                 "resumed_at": PACKET_FL_KILL, "baselines_one_round":
+                 baselines, "seconds": time.perf_counter() - t0}
+    log(f"[packet] {card}: FL on packets " + json.dumps(out["fl"]))
+
+    out["launches"] = launches
+    out["launches_by_shape"] = tally
+    out["launches_per_round"] = {
+        k: v["device_launches"] for k, v in timing.items()
+        if isinstance(v, dict)}
+    log(f"[packet] {card}: B1/B2 launches {launches} by shape {tally}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The allreduce path: AR_RANKS clients, one rank each, on the one card
 # ---------------------------------------------------------------------------
 
@@ -2303,6 +2730,7 @@ def main() -> int:
     compare = timed("compare", phase_compare, u_stack, key)
     stream = timed("stream", phase_stream, u_stack, key)
     shard = timed("shard", phase_shard, card)
+    packet = timed("packet", phase_packet, card)
     allreduce = timed("allreduce", phase_allreduce, card)
     nccl = timed("nccl", phase_nccl, card)
     timing = timed("timing", phase_timing, u_stack, key)
@@ -2326,8 +2754,9 @@ def main() -> int:
         # this process), plus the allreduce (summed over its ranks);
         # unpack is on no path (no round calls it)
         on_stream = stream["launches"] if name == "gather_quant" else 0
+        on_packet = packet["launches"].get(name, 0)
         launches = (main_path["launches"].get(name, 0)
-                    + compare["launches"][name] + on_stream
+                    + compare["launches"][name] + on_stream + on_packet
                     + allreduce["launches"][name])
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches,
@@ -2343,7 +2772,8 @@ def main() -> int:
             # shapes of their own
             at_shape = (main_path["round_launches"]
                         + compare["robust_round_launches"])
-            fl = launches - at_shape - allreduce["launches"][name] - on_stream
+            fl = (launches - at_shape - allreduce["launches"][name]
+                  - on_stream - on_packet)
             cell = stream["b1_chunk"]
             entry["launches_at_shape"] = at_shape
             entry["also_at"] = [
@@ -2366,6 +2796,12 @@ def main() -> int:
                     "strided_call_ms")}})
             entry["stream_launches_by_shape"] = stream["launches_by_shape"]
             entry["bitwise_on_strided_chunks"] = stream["b1_strided_bitwise"]
+        if name in packet["launches"]:
+            # the packet path's launches (its rounds at [N_CLIENTS, D], the
+            # stream engine's chunks under it, its FL loops), by shape
+            entry["packet_launches"] = on_packet
+            entry["packet_launches_by_shape"] = packet[
+                "launches_by_shape"].get(name, {})
         kernels.append(entry)
     b6 = serve["b6"]
     instance_keys = ("launches", "ms", "device_ms", "plain_ms", "bound_ms",
@@ -2397,7 +2833,8 @@ def main() -> int:
                "phase_s": phase_s,
                **report, "compare": compare,
                "stream": {k: v for k, v in stream.items() if k != "b1_chunk"},
-               "shard": shard, "allreduce": allreduce, "nccl": nccl,
+               "shard": shard, "packet": packet, "allreduce": allreduce,
+               "nccl": nccl,
                "serve": serve,
                **{k: v for k, v in timing.items() if k not in timed}}
     log("[summary] " + json.dumps(summary))

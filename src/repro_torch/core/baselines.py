@@ -305,14 +305,26 @@ def make_aggregator_core(name: str, **kwargs):
     return bound_core, bound_account
 
 
-def make_transport(name: str, *, transport: str = "memory", **kwargs):
-    """Bind an aggregator into a round transport.  Only the in-memory
-    transport (aggregator call, analytic wall-clock) is ported."""
+def make_transport(name: str, *, transport: str = "memory", net=None,
+                   profile=None, rates=None, local_train_s: float = 0.1,
+                   **kwargs):
+    """Bind an aggregator into a round transport.
+
+    ``transport="memory"`` wraps the plain aggregator call (analytic
+    wall-clock); ``transport="packet"`` runs the round through the
+    executable packet dataplane (:mod:`repro_torch.netsim`) with the
+    loss/straggler/participation/hierarchy policies of ``net`` (a
+    ``netsim.NetConfig``), the switch ``profile``, the per-client ``rates``
+    and ``local_train_s``.  ``kwargs`` are the aggregator kwargs, exactly
+    as for :func:`make_aggregator`.  The imports are lazy so importing
+    ``repro_torch.core`` never pulls the simulator package in.
+    """
     if transport == "memory":
         from repro_torch.netsim.transport import InMemoryTransport
         return InMemoryTransport(make_aggregator(name, **kwargs))
     if transport == "packet":
-        raise NotImplementedError("the packet transport is not ported yet "
-                                  "(ROADMAP A9: packet dataplane)")
+        from repro_torch.netsim.transport import PacketTransport
+        return PacketTransport(name, kwargs, net=net, profile=profile,
+                               rates=rates, local_train_s=local_train_s)
     raise ValueError(f"unknown transport {transport!r} "
                      "(expected 'memory' or 'packet')")

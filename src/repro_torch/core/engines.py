@@ -63,7 +63,7 @@ def _run_sharded(spec, u_stack, cfg, key, a):
 _RUNNERS = {"monolithic": _run_monolithic, "stream": _run_stream,
             "sharded": _run_sharded}
 #: the reference's other engines, with the ROADMAP item that ports each
-_NOT_PORTED = {"async": "A9: packet dataplane"}
+_NOT_PORTED = {"async": "A9: netsim/async_engine.py"}
 
 
 def _check_name(name: str) -> None:

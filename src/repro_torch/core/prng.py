@@ -31,7 +31,7 @@ from repro_torch import resolve_device
 from . import xla_math
 
 __all__ = ["PRNGKey", "split", "fold_in", "random_bits", "uniform", "gumbel",
-           "normal", "randint", "threefry2x32", "hash_pairs",
+           "exponential", "normal", "randint", "threefry2x32", "hash_pairs",
            "uniform_from_bits", "gumbel_from_bits"]
 
 _M32 = 0xFFFFFFFF
@@ -150,6 +150,11 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0,
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.gumbel(key, shape, float32)`` in mode "low"."""
     return gumbel_from_bits(random_bits(key, shape))
+
+
+def exponential(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.exponential(key, shape, float32)``: ``-log1p(-u)``."""
+    return -xla_math.log1p(-uniform(key, shape))
 
 
 # XLA's float32 erf_inv (Giles' single-precision approximation), the

@@ -1,5 +1,5 @@
-"""float32 ``log``, ``log1p`` and ``sqrt`` exactly as the reference computes
-them.
+"""float32 ``log``, ``log1p``, ``sqrt`` and ``cumsum`` exactly as the
+reference computes them.
 
 The reference's vote scores are ``log|u| + gumbel`` with
 ``gumbel = -log(-log(uniform))``.  XLA's CPU backend evaluates ``log`` with
@@ -10,6 +10,12 @@ boundary.  These functions replay XLA's expansions step for step (its
 ``log`` and ``log1p`` emitters; its ``sqrt`` is correctly rounded, which
 torch's CPU ``sqrt`` is not), so the port's vote scores and Gaussian draws
 equal the reference's bit for bit on the CPU and on the card alike.
+
+``cumsum`` replays the order in which the reference's float32 prefix sums
+(``jnp.cumsum``) add on XLA's CPU backend: a recursive blocked scan, which
+neither a sequential sum nor ``torch.cumsum`` matches.  The packet
+dataplane's arrival times and FIFO departures are such sums, and a vote
+deadline compares them to a float, so their bits decide vote counts.
 
 A fused multiply-add is emulated in float64: the float32 product is exact
 there, and only a float64 sum that lands exactly on a float32 rounding
@@ -23,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["fma", "log", "log1p", "sqrt"]
+__all__ = ["fma", "log", "log1p", "sqrt", "cumsum"]
 
 _TINY = float(np.finfo(np.float32).tiny)
 _SQRTHF = 0.707106781186547524
@@ -97,3 +103,33 @@ def log1p(x: torch.Tensor) -> torch.Tensor:
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root (as XLA's)."""
     return torch.sqrt(x.double()).float()
+
+
+#: the block of XLA's CPU prefix sum
+_SCAN_BLOCK = 16
+
+
+def _sequential_prefix(x: torch.Tensor) -> torch.Tensor:
+    """float32 prefix sums along the last axis, added left to right."""
+    cols = [x[..., 0]]
+    for j in range(1, x.shape[-1]):
+        cols.append(cols[-1] + x[..., j])
+    return torch.stack(cols, dim=-1)
+
+
+def cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jnp.cumsum(x, axis=dim)`` in XLA's CPU order: a sequential prefix
+    inside each block of 16 elements, the block totals scanned by the same
+    rule (recursively), then each block's prefix plus the scanned total of
+    the blocks before it."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        return (_sequential_prefix(x) if n else x.clone()).movedim(-1, dim)
+    nb = -(-n // _SCAN_BLOCK)
+    # zeros past the end change no earlier prefix
+    padded = torch.nn.functional.pad(x, (0, nb * _SCAN_BLOCK - n))
+    p = _sequential_prefix(padded.reshape(*x.shape[:-1], nb, _SCAN_BLOCK))
+    before = cumsum(p[..., -1], -1)[..., :-1, None]
+    p = torch.cat([p[..., :1, :], before + p[..., 1:, :]], dim=-2)
+    return p.reshape(*x.shape[:-1], nb * _SCAN_BLOCK)[..., :n].movedim(-1, dim)

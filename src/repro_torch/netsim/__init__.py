@@ -1,5 +1,36 @@
-"""Round transports of the port (only the in-memory one so far)."""
+"""Executable packet-level switch dataplane.
 
-from .transport import InMemoryTransport, RoundResult
+Runs FediAC rounds as packet streams through memory-limited programmable
+switches: Poisson packet timelines, loss + retransmission, stragglers and
+partial participation, a vote-quorum deadline, finite int32 register
+windows, and a leaf -> root multi-switch hierarchy.  The FediAC round is
+a fixed-shape core of tensors (``netsim.batched``) run on the device of
+the update stack, and the lossless full-participation configuration is
+bit-identical to the in-memory ``core.fediac.aggregate_stack`` engine.
+The fault-injecting, async and adversarial cores of the reference are not
+ported yet.
+"""
 
-__all__ = ["InMemoryTransport", "RoundResult"]
+from .batched import (make_fediac_packet_core, packet_dyn, reliable_upload,
+                      scale_num_table, threshold_table)
+from .dataplane import DataplaneStats, SwitchDataplane, n_windows, slot_window
+from .hierarchy import aggregate_hierarchy, drain_hierarchy, leaf_assignment
+from .policies import (NetConfig, REGISTER_POLICIES, net_round_key,
+                       register_accumulate, sample_participants,
+                       sample_stragglers)
+from .timeline import (DrainStats, deadline_mask, download_time, drain_fifo,
+                       lose_packets, mg1_departures, poisson_arrivals,
+                       retransmit_delays, simulate_round_time, windowed_drain)
+from .transport import InMemoryTransport, PacketTransport, RoundResult, Transport
+
+__all__ = ["DataplaneStats", "SwitchDataplane", "n_windows", "slot_window",
+           "aggregate_hierarchy",
+           "drain_hierarchy", "leaf_assignment", "NetConfig", "net_round_key",
+           "sample_participants", "sample_stragglers", "DrainStats",
+           "deadline_mask", "download_time", "drain_fifo", "lose_packets",
+           "mg1_departures",
+           "poisson_arrivals", "retransmit_delays", "simulate_round_time",
+           "windowed_drain", "InMemoryTransport", "PacketTransport",
+           "RoundResult", "Transport", "make_fediac_packet_core",
+           "packet_dyn", "reliable_upload", "scale_num_table",
+           "threshold_table", "REGISTER_POLICIES", "register_accumulate"]

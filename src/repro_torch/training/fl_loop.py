@@ -13,13 +13,15 @@ b``) and its flat order: ``ravel_pytree`` sorts each layer's dict keys, so
 the flat vector is ``[b0, w0, b1, w1, ...]``.  The error-feedback stack,
 the update stack and the aggregated delta all index that vector.
 
-Ported: the in-memory transport with all six aggregators of
-:mod:`repro_torch.core.baselines`, FediAC on either ported engine
-(``FLConfig.engine``: the monolithic one or the chunked ``"stream"``
-one, with bit-identical histories), round-granular checkpointing with
-bit-exact resume (``ckpt_path``, ``ckpt_every``, ``resume``), and the
-history readouts of the paper's figures and tables.  Probes and the
-packet transport raise ``NotImplementedError``.
+Ported: both transports with all six aggregators of
+:mod:`repro_torch.core.baselines` — the in-memory one (analytic
+wall-clock) and the packet dataplane of :mod:`repro_torch.netsim`
+(``transport="packet"`` with ``FLConfig.net``: simulated wall-clock and
+exact upload bytes) — FediAC on any ported engine (``FLConfig.engine``,
+with bit-identical histories), round-granular checkpointing with bit-exact
+resume (``ckpt_path``, ``ckpt_every``, ``resume``), and the history
+readouts of the paper's figures and tables.  Probes raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -150,9 +152,9 @@ def accuracy(model: MLP, x: torch.Tensor, y: torch.Tensor) -> float:
 class FLConfig:
     """One federated-learning experiment, named as in the reference.
 
-    ``transport="memory"`` with any aggregator of
-    :mod:`repro_torch.core.baselines`; ``"packet"`` raises (its knobs come
-    with it).  Crash-safe recovery: with ``ckpt_path`` set, the loop's
+    Any aggregator of :mod:`repro_torch.core.baselines`, through
+    ``transport="memory"`` or ``"packet"`` (the dataplane, with the
+    policies of ``net``, a ``netsim.NetConfig``).  Crash-safe recovery: with ``ckpt_path`` set, the loop's
     inter-round state (model, error-feedback stack, PRNG key, aggregator
     state, pricing accumulators, history) is saved atomically every
     ``ckpt_every`` rounds and after the last; ``resume=True`` restores it
@@ -172,6 +174,7 @@ class FLConfig:
     switch: SwitchProfile = field(default_factory=SwitchProfile.high)
     local_train_s: float = 0.1     # paper: 0.1 (FEMNIST) .. 3 (CIFAR-100)
     transport: str = "memory"      # "memory" | "packet"
+    net: object | None = None      # netsim.NetConfig for transport="packet"
     seed: int = 0
     ckpt_path: str | None = None   # round-granular run-state checkpoint file
     ckpt_every: int = 1            # save every k completed rounds
@@ -346,6 +349,8 @@ def run_federated(clients, test, flcfg: FLConfig, *, hidden=(128, 64),
         agg_kwargs["cfg"] = replace(base_cfg, engine=engines.get(flcfg.engine))
     rates = client_rates(n, flcfg.seed)
     transport = make_transport(flcfg.aggregator, transport=flcfg.transport,
+                               net=flcfg.net, profile=flcfg.switch,
+                               rates=rates, local_train_s=flcfg.local_train_s,
                                **agg_kwargs)
     if wrap_transport is not None:
         transport = wrap_transport(transport)
@@ -382,15 +387,20 @@ def run_federated(clients, test, flcfg: FLConfig, *, hidden=(128, 64),
         traffic, load = res.traffic, res.load
         flat = flat - delta
 
-        t_cum += round_wall_clock(
-            packets_per_client=load.packets_per_client,
-            download_packets=n_packets(traffic.total_bytes), rates=rates,
-            profile=flcfg.switch, local_train_s=flcfg.local_train_s,
-            aligned=load.aligned)
-        # uploads come from the clients that sent this round; the
-        # broadcast reaches all N clients.
-        mb_cum += (traffic.total_bytes * res.n_active / 1e6
-                   + traffic.total_bytes * n / 1e6)
+        if res.wall_clock_s is not None:
+            t_cum += res.wall_clock_s       # packet-simulated round time
+        else:
+            t_cum += round_wall_clock(
+                packets_per_client=load.packets_per_client,
+                download_packets=n_packets(traffic.total_bytes),
+                rates=rates, profile=flcfg.switch,
+                local_train_s=flcfg.local_train_s, aligned=load.aligned)
+        # uploads come from the clients that sent this round (the packet
+        # transport reports exact bytes: dropped voters still spent phase
+        # 1); the broadcast reaches all N clients.
+        up_bytes = (res.upload_bytes if res.upload_bytes is not None
+                    else traffic.total_bytes * res.n_active)
+        mb_cum += up_bytes / 1e6 + traffic.total_bytes * n / 1e6
         model.load_flat(flat)
         hist.append_round(acc=accuracy(model, xt, yt), wall_clock=t_cum,
                           traffic_mb=mb_cum, loss=float(losses.mean()))

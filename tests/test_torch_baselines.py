@@ -137,8 +137,9 @@ def test_topk_mask_tie_order(k):
 def test_unknown_aggregator_and_transport():
     with pytest.raises(KeyError):
         tb.make_aggregator("no-such-aggregator")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tb.make_transport("fedavg", transport="packet")
+    from repro_torch.netsim import PacketTransport
+    assert isinstance(tb.make_transport("fedavg", transport="packet"),
+                      PacketTransport)
     with pytest.raises(ValueError):
         tb.make_transport("fedavg", transport="pigeon")
 

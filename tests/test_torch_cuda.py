@@ -1,5 +1,5 @@
 """The port on the card: each CUDA kernel against its plain version, and
-a round and the FL loop against the same on the CPU.  Every test needs an
+a round, the packet round and the FL loop against the same on the CPU.  Every test needs an
 NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the reference package, so it also runs
@@ -227,6 +227,89 @@ def test_fl_resume_on_card_bit_identical(cuda_device, tmp_path):
     resumed = fl_loop.run_federated(clients, test, fl_loop.FLConfig(
         rounds=3, ckpt_path=path, resume=True, **kw), hidden=(32, 16))
     assert resumed == full
+
+
+def _packet_net():
+    from repro_torch.netsim import NetConfig
+    return NetConfig(loss=0.05, participation=0.5, straggler_frac=0.25,
+                     straggler_slowdown=3.0, n_leaves=2, memory_slots=1024,
+                     vote_deadline_s=0.105, seed=9)
+
+
+def _packet_same(a, b, rtol=1e-6):
+    assert _same(a.delta, b.delta) and _same(a.residuals, b.residuals)
+    for k, v in a.stats.items():
+        if k == "mean_wait_s":      # a float sum, in another order
+            np.testing.assert_allclose(v, b.stats[k], rtol=rtol)
+        else:
+            np.testing.assert_array_equal(v, b.stats[k])
+    np.testing.assert_allclose(a.wall_clock_s, b.wall_clock_s, rtol=rtol)
+    assert a.upload_bytes == b.upload_bytes and a.n_active == b.n_active
+
+
+@pytest.mark.parametrize("vote_chunk,kernels", [(1, True), (4, True),
+                                                (1, False)])
+def test_packet_round_on_card_equals_cpu(cuda_device, vote_chunk, kernels):
+    """The lossy packet round (loss, sampling, stragglers, a deadline, two
+    leaves, a small bank) on the card against the CPU."""
+    from repro_torch.netsim import PacketTransport
+    rng = np.random.default_rng(8)
+    u = torch.from_numpy((rng.standard_normal((8, 40_000)) ** 3).astype(
+        np.float32))
+    cfg = FediACConfig(vote_chunk=vote_chunk,
+                       engine=EngineSpec(use_pallas=kernels))
+    tp = PacketTransport("fediac", {"cfg": cfg}, net=_packet_net())
+    before = (gather_quant.gather_quant.launches,
+              stoch_quant.stoch_quant.launches)
+    on_card = tp.round(u.to(cuda_device), None,
+                       prng.PRNGKey(2, device=cuda_device), 1)
+    rose = (gather_quant.gather_quant.launches - before[0],
+            stoch_quant.stoch_quant.launches - before[1])
+    assert rose == ((int(vote_chunk == 1), int(vote_chunk > 1)) if kernels
+                    else (0, 0))
+    on_cpu = tp.round(u, None, prng.PRNGKey(2, device="cpu"), 1)
+    _packet_same(on_card, on_cpu)
+    assert on_card.stats["passes"] > 1 and 0 < on_card.n_active < 8
+
+
+@pytest.mark.parametrize("spec", [EngineSpec("stream", chunk=5000,
+                                             use_pallas=True),
+                                  EngineSpec("sharded", devices=3)])
+def test_packet_engines_on_card(cuda_device, spec):
+    from repro_torch.netsim import PacketTransport
+    rng = np.random.default_rng(9)
+    u = torch.from_numpy((rng.standard_normal((8, 40_000)) ** 3).astype(
+        np.float32)).to(cuda_device)
+    key = prng.PRNGKey(3, device=cuda_device)
+    mono = FediACConfig(engine=EngineSpec(use_pallas=spec.use_pallas))
+    got = PacketTransport("fediac", {"cfg": FediACConfig(engine=spec)},
+                          net=_packet_net()).round(u, None, key, 2)
+    want = PacketTransport("fediac", {"cfg": mono},
+                           net=_packet_net()).round(u, None, key, 2)
+    _packet_same(got, want, rtol=0.0)
+
+
+def test_fl_packet_resume_on_card_bit_identical(cuda_device, tmp_path):
+    from repro_torch.netsim import NetConfig
+    data = classification(n=1200, dim=16, seed=0)
+    train, test = data.test_split(0.2)
+    clients = partition_dirichlet(train, 4, beta=0.5, seed=0)
+    kw = dict(n_clients=4, local_steps=2, batch=16, transport="packet",
+              net=NetConfig(loss=0.05, participation=0.5, seed=3),
+              engine=EngineSpec(use_pallas=True))
+    full = fl_loop.run_federated(clients, test, fl_loop.FLConfig(
+        rounds=3, **kw), hidden=(32, 16))
+    path = str(tmp_path / "run.npz")
+    fl_loop.run_federated(clients, test, fl_loop.FLConfig(
+        rounds=1, ckpt_path=path, **kw), hidden=(32, 16))
+    resumed = fl_loop.run_federated(clients, test, fl_loop.FLConfig(
+        rounds=3, ckpt_path=path, resume=True, **kw), hidden=(32, 16))
+    assert resumed == full
+    h_cpu = fl_loop.run_federated(clients, test, fl_loop.FLConfig(
+        rounds=3, **kw), hidden=(32, 16), device="cpu")
+    assert h_cpu.traffic_mb == full.traffic_mb
+    np.testing.assert_allclose(h_cpu.wall_clock, full.wall_clock, rtol=1e-6)
+    np.testing.assert_allclose(h_cpu.loss, full.loss, rtol=1e-4)
 
 
 def _close(got, want, dtype):
