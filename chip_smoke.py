@@ -77,7 +77,26 @@ Phases, each of which raises (and exits non-zero) on failure:
    after, tallied by shape; then the packet round beside
    ``aggregate_stack``, the timeline alone, the idle share and the
    launches per round;
-10. allreduce path: 8 ranks on the one card over gloo (spawned once), each
+10. faults path (``netsim/faults.py``, ``robust/``: the packet round
+   under faults and under Byzantine attack): at N = 32, d = 1,000,000,
+   kernels on, under the lossy dataplane, a zero-knob ``FaultConfig``
+   bitwise the plain packet round with each register policy and a
+   zero-knob ``AdversaryConfig`` bitwise that chaos round (top-k/top-k,
+   threshold/block, and at vote_chunk 4); the storm (the chaos grid's
+   burst-crash rates, a quorum floor, the rescale close) and the
+   defended attack (the attack grid's full attack and defenses) at
+   full width, their delta, residuals and counts unmoved by duplicate
+   rates 0 and 0.9, then both card against CPU at d = 131,072; the storm
+   on the stream (kernels on) and sharded engines at N = 8,
+   d = 9,994,240, bitwise the monolithic round; the chaos and attack
+   grids as FL tasks (N = 10, 10 rounds): clean cells bitwise the plain
+   packet run, the reference benchmark's defense gates, two cells card
+   against CPU, the defended cell killed at round 5 and resumed; the
+   rounds timed beside the plain packet round, the Gilbert–Elliott
+   chain's share, the idle share and launches per round; the B1 and B2
+   counts zeroed just before each run and read just after, tallied by
+   shape;
+11. allreduce path: 8 ranks on the one card over gloo (spawned once), each
    one client of ``fediac_allreduce`` at d = 12,500,992 (one device's
    slice of the reference's d ~ 1e8 sort-free scale cell) on the packed
    wire, threshold/block (``vote_pack`` + ``popcount``) and topk/topk
@@ -90,13 +109,13 @@ Phases, each of which raises (and exits non-zero) on failure:
    d = 1,000,000; then round and collective times; then one NCCL rank
    (world size 1) running the packed top-k allreduce and both mesh
    baselines, each bitwise against the same call on a one-rank gloo group;
-11. timing: each kernel, its plain version and its memory bound at the main
+12. timing: each kernel, its plain version and its memory bound at the main
    paths' shapes (``gather_quant`` at each of its shapes), and whole
    rounds.  A kernel's ``ms`` is CUDA-event time per wrapper call (it
    includes the host's launch work whenever that is slower than the
    kernel); ``device_ms`` is the kernel alone, per launch of a replayed
    CUDA graph of back-to-back calls;
-12. serve path: Qwen3-0.6B at full width and depth (28 layers, random
+13. serve path: Qwen3-0.6B at full width and depth (28 layers, random
    weights from ``PRNGKey(0)``) prefills 2 requests of 32,768 tokens
    through ``make_serve_step`` (the counts zeroed just before; B6's bf16
    tensor-core instance must launch once per layer), its logits finite;
@@ -122,6 +141,7 @@ before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import shutil
@@ -198,8 +218,12 @@ def check(cond: bool, msg: str) -> None:
 
 def same_bits(a, b) -> bool:
     """Bitwise equality of two tensors of one dtype (float via int32 view),
-    on their device when they share one, else on the host."""
+    on their device when they share one, else on the host; of two dicts of
+    tensors (a round's reputation state) key by key."""
     import torch
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_bits(a[k], b[k]) for k in a))
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
     a, b = a.detach(), b.detach()
@@ -603,14 +627,12 @@ def _fl_agg_kwargs(name):
 def _fl_compare_cfg(name, **extra):
     """The default FL setup (kernels on, so fediac launches B1) with
     aggregator ``name``."""
-    import dataclasses
     _, _, flcfg = _fl_setup()
     return dataclasses.replace(flcfg, aggregator=name,
                                agg_kwargs=_fl_agg_kwargs(name), **extra)
 
 
 def _robust_cfg(close, frac, g):
-    import dataclasses
     return dataclasses.replace(_round_cfg(g), robust_agg=close,
                                trim_frac=frac)
 
@@ -1020,7 +1042,6 @@ def phase_stream(u_stack, key) -> dict:
     to the monolithic run's, then the 8 x STREAM_SCALE_D cell: timed,
     profiled, its peak memory with and without ``out=``, checked; then B1
     at the cell's chunk shape and the copies around each chunk's launch."""
-    import dataclasses
 
     import torch
     from repro_torch.core import fediac, prng, stream_engine, streams
@@ -1514,6 +1535,37 @@ def _quant_tally(by_kernel: dict):
         ops.gather_quant, ops.stoch_quant = gather_quant, stoch_quant
 
 
+class _QuantCounter:
+    """Runs ``fn()`` with the B1 (``gather_quant``) and B2
+    (``stoch_quant``) counts zeroed just before and read just after,
+    returning ``(fn(), launches, launches by shape)``, and adds both to
+    its phase's tallies (``launches``, ``tally``)."""
+
+    def __init__(self):
+        self.counters = _counters()
+        self.launches = {"gather_quant": 0, "stoch_quant": 0}
+        self.tally = {}
+
+    def __call__(self, fn):
+        import torch
+        for name in self.launches:
+            self.counters[name].launches = 0
+        by_shape = {}
+        with _quant_tally(by_shape):
+            res = fn()
+        torch.cuda.synchronize()
+        rose = {name: self.counters[name].launches for name in self.launches}
+        for name, shapes in by_shape.items():
+            check(sum(shapes.values()) == rose[name],
+                  f"{name}: {rose[name]} launches, by shape {shapes}")
+            for k, v in shapes.items():
+                self.tally.setdefault(name, {})
+                self.tally[name][k] = self.tally[name].get(k, 0) + v
+        for name, v in rose.items():
+            self.launches[name] += v
+        return res, rose, by_shape
+
+
 def _packet_round(cfg, net, u, key, round_idx=0):
     from repro_torch.netsim import PacketTransport
     return PacketTransport("fediac", {"cfg": cfg}, net=net).round(
@@ -1627,39 +1679,14 @@ def phase_packet(card: str) -> dict:
     five baselines one round each; (e) round times, the timeline's share,
     the idle share and launches per round.  The B1 and B2 counts are zeroed
     just before each packet run and read just after, tallied by shape."""
-    import dataclasses
-
     import torch
     from repro_torch.core import fediac, prng, stream_engine
     from repro_torch.netsim import NetConfig
     from repro_torch.switch import client_rates
     from repro_torch.training.fl_loop import run_federated
-    counters = _counters()
-    tally = {}
     out = {"card": card}
-
-    launches = {"gather_quant": 0, "stoch_quant": 0}
-
-    def counted(fn):
-        """``fn()`` with the B1 and B2 counts zeroed just before and read
-        just after, and their launches by shape; both added to the phase's
-        tallies."""
-        for name in launches:
-            counters[name].launches = 0
-        by_shape = {}
-        with _quant_tally(by_shape):
-            res = fn()
-        torch.cuda.synchronize()
-        rose = {name: counters[name].launches for name in launches}
-        for name, shapes in by_shape.items():
-            check(sum(shapes.values()) == rose[name],
-                  f"{name}: {rose[name]} launches, by shape {shapes}")
-            for k, v in shapes.items():
-                tally.setdefault(name, {})
-                tally[name][k] = tally[name].get(k, 0) + v
-        for name, v in rose.items():
-            launches[name] += v
-        return res, rose, by_shape
+    counted = _QuantCounter()
+    launches, tally = counted.launches, counted.tally
 
     # -- (a) lossless, full width: bitwise aggregate_stack
     t0 = time.perf_counter()
@@ -1844,6 +1871,436 @@ def phase_packet(card: str) -> dict:
         k: v["device_launches"] for k, v in timing.items()
         if isinstance(v, dict)}
     log(f"[packet] {card}: B1/B2 launches {launches} by shape {tally}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The chaos and robust paths: the packet round under faults
+# (netsim/faults.py) and under Byzantine attack answered by the switch-side
+# defenses (robust/), behind PacketTransport and the FL loop
+# ---------------------------------------------------------------------------
+
+#: the chaos grid's chaos-burst-crash fault rates (src/repro/sweep/grids.py)
+STORM_RATES = dict(ge_p_gb=0.05, ge_p_bg=0.4, ge_loss_bad=0.8,
+                   crash_rate=0.1, dup_rate=0.1, reorder_jitter_s=0.002)
+#: the attack grid's full attack and its defenses (attack-full-defended);
+#: the defended close trims TRIM_FRAC per side.  The grid's vote budget,
+#: 1,000 at its 13,130 coordinates whose honest top-k is 657 votes, is
+#: scaled by that ratio to the round's honest top-k (GRID_BUDGET)
+ATTACK = dict(byzantine_frac=0.25, collusion_frac=0.2, vote_stuff_frac=0.3,
+              poison_scale=-8.0)
+DEFENSE = dict(clip_ticks=1024, rep_threshold=2.0, rep_z_thresh=2.0,
+               quarantine_rounds=3)
+TRIM_FRAC = 0.2
+GRID_BUDGET = (1000, 657)
+#: the card-vs-CPU width of the storm and the defended attack
+FAULTS_CHECK_D = 131_072
+#: the dedup contract's duplicate rates
+DUP_RATES = (0.0, 0.9)
+#: the FL cells: the chaos grid and the attack grid (grids.py), 10 rounds,
+#: the defended cell killed after round FAULTS_FL_KILL and resumed
+CHAOS_CELLS = {"chaos-clean": {},
+               "chaos-ge": dict(ge_p_gb=0.05, ge_p_bg=0.4, ge_loss_bad=0.8),
+               "chaos-crash": dict(crash_rate=0.1, crash_p2_frac=0.5),
+               "chaos-dup": dict(dup_rate=0.15),
+               "chaos-burst-crash": STORM_RATES}
+ATTACK_CELLS = {"attack-clean": {},
+                "attack-stuff": dict(byzantine_frac=0.25, collusion_frac=0.2,
+                                     vote_stuff_frac=0.3),
+                "attack-poison": dict(byzantine_frac=0.25, poison_scale=-8.0),
+                "attack-full": ATTACK,
+                "attack-full-defended": dict(ATTACK, **DEFENSE,
+                                             vote_budget=GRID_BUDGET[0],
+                                             trim_frac=TRIM_FRAC)}
+FAULTS_FL_ROUNDS, FAULTS_FL_KILL = 10, 5
+#: the grids' network seed.  Byzantine membership is one uniform per client
+#: off the run key; at the grids' seed 0 no one of the 10 clients draws
+#: below byzantine_frac (0.25) under jax's partitionable threefry, which the
+#: port replays, so the attack cells would carry no attack.  Seed 8 is the
+#: smallest whose cohort has the shape of the reference's recorded run
+#: (BENCH_robust.json, drawn before partitionable threefry): one Byzantine
+#: client of ten, not colluding.  FAULTS_FL_SEED_2 (seed 1, two colluding
+#: clients) is run beside it and gated at SEED_2_FLOOR
+FAULTS_FL_NET_SEED, FAULTS_FL_SEED_2 = 8, 1
+#: the reference benchmark's defense gates (benchmarks/robust.py): the
+#: defended run's final accuracy at least DEFENSE_FLOOR of the clean run's,
+#: the undefended attack's at most ATTACK_CEILING of it
+DEFENSE_FLOOR, ATTACK_CEILING = 0.9, 0.5
+#: at FAULTS_FL_SEED_2 the reference's own defense reaches 0.8924 of clean
+#: on the CPU, below DEFENSE_FLOOR; the floor there is that ratio less about
+#: six test samples of 750 (tests/test_torch_adversary.py, SEED_1_FLOOR)
+SEED_2_FLOOR = 0.88
+
+
+def _storm_net(n: int, **kw):
+    """The storm: PACKET_NET's lossy dataplane with the burst-crash rates,
+    a quorum floor of a quarter of the clients (8 of 32) and the rescale
+    register close."""
+    from repro_torch.netsim import FaultConfig
+    return FaultConfig(**{**PACKET_NET, **STORM_RATES, "quorum_floor": n // 4,
+                          "register_policy": "rescale", **kw})
+
+
+def _attack_net(cfg, d: int, **kw):
+    """The defended attack under the storm's faults: the attack grid's
+    full attack and defenses, the vote budget scaled to the round's honest
+    top-k (GRID_BUDGET)."""
+    from repro_torch.robust import AdversaryConfig
+    budget = math.ceil(GRID_BUDGET[0] * cfg.k(d // cfg.vote_chunk)
+                       / GRID_BUDGET[1])
+    return AdversaryConfig(**{**PACKET_NET, **STORM_RATES, **ATTACK,
+                              **DEFENSE, "vote_budget": budget, **kw})
+
+
+def _defended_cfg(cfg):
+    return dataclasses.replace(cfg, robust_agg="trim", trim_frac=TRIM_FRAC)
+
+
+def _extra_stats(r) -> dict:
+    from repro_torch.netsim.faults import CHAOS_STAT_FIELDS
+    from repro_torch.robust import ROBUST_STAT_FIELDS
+    return {k: r.stats[k] for k in CHAOS_STAT_FIELDS + ROBUST_STAT_FIELDS
+            if k in r.stats}
+
+
+def _fault_gates(where, got, want, *, times_exact=True) -> dict:
+    """:func:`_packet_gates` plus the chaos and robust statistics both
+    rounds report and the reputation state, bitwise."""
+    gaps = _packet_gates(where, got, want, times_exact=times_exact)
+    a, b = _extra_stats(got), _extra_stats(want)
+    common = a.keys() & b.keys()
+    check(all(a[k] == b[k] for k in common),
+          f"{where}: chaos / robust stats {a} != {b}")
+    check(got.state is None or want.state is None
+          or same_bits(got.state, want.state),
+          f"{where}: reputation state differs")
+    return gaps
+
+
+def _zero_extras(where, r) -> None:
+    extras = _extra_stats(r)
+    check(all(v == (1 if k == "attempts" else 0) for k, v in extras.items()),
+          f"{where}: a zero-knob round reports {extras}")
+
+
+def _grid_fl_cfg(name: str, rounds=FAULTS_FL_ROUNDS, plain=False,
+                 seed=FAULTS_FL_NET_SEED):
+    """One cell of the chaos or attack grid as the FL task the reference's
+    sweep runs (``ScenarioSpec.to_flconfig``): PACKET_FL's task and
+    FediAC a = 2, 12 bits, on a FaultConfig (the chaos grid) or an
+    AdversaryConfig with the trim close (the attack grid); ``plain`` gives
+    the same task on a plain NetConfig and the sum close; ``seed`` the
+    network seed.  The kernels on."""
+    from repro_torch.core.engines import EngineSpec
+    from repro_torch.core.fediac import FediACConfig
+    from repro_torch.netsim import FaultConfig, NetConfig
+    from repro_torch.robust import AdversaryConfig
+    from repro_torch.training.fl_loop import FLConfig
+    knobs = dict(CHAOS_CELLS.get(name, ATTACK_CELLS.get(name, {})))
+    trim = knobs.pop("trim_frac", 0.0)
+    cfg = FediACConfig(a=2, bits=12)
+    if plain:
+        net = NetConfig(seed=seed)
+    elif name in CHAOS_CELLS:
+        net = FaultConfig(seed=seed, **knobs)
+    else:
+        net = AdversaryConfig(seed=seed, **knobs)
+        cfg = dataclasses.replace(cfg, robust_agg="trim", trim_frac=trim)
+    return FLConfig(n_clients=10, rounds=rounds, local_steps=3,
+                    aggregator="fediac", agg_kwargs={"cfg": cfg},
+                    engine=EngineSpec(use_pallas=True), transport="packet",
+                    net=net)
+
+
+def phase_faults(card: str) -> dict:
+    """The chaos and robust cores on the card: (a) at N_CLIENTS x D with
+    the kernels on, under PACKET_NET and a deadline at the median vote
+    arrival, a zero-knob FaultConfig bitwise the plain packet round with
+    each register policy, a zero-knob AdversaryConfig bitwise that chaos
+    round in top-k/top-k and threshold/block, and all three at vote_chunk
+    4 (B2); (b) the storm and the defended attack at N_CLIENTS x D, each
+    at its duplicate rate and at DUP_RATES (delta, residuals and counts
+    unmoved by duplicates), then both at FAULTS_CHECK_D card against CPU;
+    (c) the storm on the stream engine (kernels on) and the sharded engine
+    (8 shards) at 8 x SHARD_TIMING_D, bitwise the monolithic chaos round;
+    (d) the chaos and attack grids as FL tasks: the clean cells bitwise
+    the plain packet run, the defense gates, two cells card against CPU,
+    the defended cell killed and resumed; (e) round times against the
+    plain packet round, the Gilbert–Elliott chain's share, the idle share
+    and the launches per round.  The B1 and B2 counts are zeroed just
+    before each run and read just after, tallied by shape."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import load_run_state
+    from repro_torch.core import prng, stream_engine
+    from repro_torch.core.fediac import round_traffic
+    from repro_torch.netsim import FaultConfig, NetConfig
+    from repro_torch.netsim.faults import _ge_loss_probability
+    from repro_torch.robust import AdversaryConfig
+    from repro_torch.switch import n_packets
+    from repro_torch.training.fl_loop import run_federated
+    out = {"card": card}
+    counted = _QuantCounter()
+
+    # -- (a) zero knobs at full width: chaos == plain, robust == chaos
+    t0 = time.perf_counter()
+    key = prng.PRNGKey(0, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    u = torch.randn(N_CLIENTS, D, device=DEV, generator=gen) ** 3
+    deadline = _vote_median(N_CLIENTS, D, PACKET_NET["seed"], round_idx=1)
+    base = dict(PACKET_NET, vote_deadline_s=deadline)
+    checked = []
+    rounds = {}
+    for vm, cm, g in (("topk", "topk", 1), ("threshold", "block", 1),
+                      ("topk", "topk", 4)):
+        cfg = _packet_cfg(vm, cm, g)
+        want = {"gather_quant": int(g == 1 and cm == "topk"),
+                "stoch_quant": int(g > 1)}
+        where = f"{vm}/{cm} g={g}"
+
+        def run(net):
+            res, rose, _ = counted(lambda: _packet_round(cfg, net, u, key, 1))
+            check(rose == want, f"faults {where}: launches {rose}")
+            return res
+
+        plain = run(NetConfig(**base))
+        policies = (("wrap", "saturate", "rescale") if (vm, g) == ("topk", 1)
+                    else ("wrap",))
+        for policy in policies:
+            chaos = run(FaultConfig(**base, register_policy=policy))
+            _fault_gates(f"zero-fault chaos {where} {policy} vs plain",
+                         chaos, plain)
+            _zero_extras(f"chaos {where} {policy}", chaos)
+            if policy == "wrap":
+                chaos_wrap = chaos
+            checked.append(f"chaos {where} {policy} == plain")
+        robust = run(AdversaryConfig(**base))
+        _fault_gates(f"zero-adversary robust {where} vs chaos", robust,
+                     chaos_wrap)
+        _zero_extras(f"robust {where}", robust)
+        checked.append(f"robust {where} == chaos")
+        if (vm, cm, g) == ("topk", "topk", 1):
+            rounds = {"plain": plain, "chaos": chaos_wrap, "robust": robust}
+        del plain, chaos, chaos_wrap, robust
+    out["zero_knobs"] = {"n": N_CLIENTS, "d": D, "vote_deadline_s": deadline,
+                         "bitwise": checked,
+                         "uploaders": rounds["plain"].n_active,
+                         "seconds": time.perf_counter() - t0}
+    log(f"[faults] {card}: zero knobs at N={N_CLIENTS} d={D}: {checked}")
+
+    # -- (b) the storm and the defended attack at full width, then card
+    # against CPU at FAULTS_CHECK_D
+    t0 = time.perf_counter()
+    cfg = _packet_cfg()
+    att_cfg = _defended_cfg(cfg)
+    storm = _storm_net(N_CLIENTS)
+    attack = _attack_net(cfg, D)
+    faulty = {}
+    for name, c, net in (("storm", cfg, storm), ("attack", att_cfg, attack)):
+        runs = {}
+        for rate in (net.dup_rate,) + DUP_RATES:
+            runs[rate], rose, _ = counted(lambda: _packet_round(
+                c, dataclasses.replace(net, dup_rate=rate), u, key, 1))
+            check(rose == {"gather_quant": 1, "stoch_quant": 0},
+                  f"{name} dup_rate={rate}: launches {rose}")
+        r0 = runs[net.dup_rate]
+        for rate, r in runs.items():
+            check(same_bits(r.delta, r0.delta)
+                  and same_bits(r.residuals, r0.residuals)
+                  and bool(np.array_equal(r.stats["vote_counts"],
+                                          r0.stats["vote_counts"])),
+                  f"{name}: dup_rate {rate} moved the aggregate (dedup)")
+        stats = _extra_stats(r0)
+        check(runs[DUP_RATES[1]].stats["duplicates"] > 0
+              and stats["duplicates"] > 0 and stats["crashed"] > 0,
+              f"{name}: no duplicates / crashes: {stats}")
+        if name == "attack":
+            check(stats["stuffed_votes"] > 0 and stats["byzantine"] > 0,
+                  f"attack: no stuffing / Byzantine clients: {stats}")
+        faulty[name] = {
+            "uploaders": r0.n_active, "stats": stats,
+            "duplicates_at": {str(k): r.stats["duplicates"]
+                              for k, r in runs.items()},
+            "wall_clock_s": r0.wall_clock_s,
+            "upload_bytes": r0.upload_bytes}
+        rounds[name] = r0
+        del runs
+    # card against CPU at FAULTS_CHECK_D
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    u_small = torch.randn(N_CLIENTS, FAULTS_CHECK_D, device=DEV,
+                          generator=gen) ** 3
+    for name, c, net in (("storm", cfg, storm),
+                         ("attack", att_cfg,
+                          _attack_net(cfg, FAULTS_CHECK_D))):
+        card_r, _, _ = counted(lambda: _packet_round(c, net, u_small, key, 1))
+        t_cpu = time.perf_counter()
+        cpu_r = _packet_round(c, net, u_small.cpu(), key.cpu(), 1)
+        t_cpu = time.perf_counter() - t_cpu
+        gaps = _fault_gates(f"{name} card vs CPU at d={FAULTS_CHECK_D}",
+                            card_r, cpu_r, times_exact=False)
+        faulty[name]["card_vs_cpu"] = {
+            "d": FAULTS_CHECK_D, "time_rel_gaps": gaps, "cpu_round_s": t_cpu,
+            "stats": _extra_stats(card_r)}
+    faulty["seconds"] = time.perf_counter() - t0
+    out["faulty"] = faulty
+    log(f"[faults] {card}: storm and defended attack "
+        + json.dumps(faulty))
+    del u_small
+
+    # -- (e) times at N_CLIENTS x D
+    p1 = n_packets(round_traffic(cfg, D).phase1_bytes, storm.mtu)
+    ge_ms = wall_ms(lambda: _ge_loss_probability(
+        key, (N_CLIENTS, p1), 0.05, 0.05, 0.4, 0.8), iters=10)
+    timing = {}
+    nets = {"plain": (cfg, NetConfig(**base)),
+            "chaos": (cfg, FaultConfig(**base)),
+            "robust": (cfg, AdversaryConfig(**base)),
+            "storm": (cfg, storm), "attack": (att_cfg, attack)}
+    for name, (c, net) in nets.items():
+        ms = wall_ms(lambda: _packet_round(c, net, u, key, 1),
+                     iters=PACKET_TIME_ITERS)
+        rows = device_profile(lambda: _packet_round(c, net, u, key, 1),
+                              iters=1)
+        busy = sum(r[1] for r in rows)
+        timing[name] = {
+            "round_ms": ms, "device_ms": busy,
+            "idle_share": 1.0 - busy / ms if rows else None,
+            "device_launches": sum(r[2] for r in rows),
+            "top_kernels": [(nm[:60], t, n_) for nm, t, n_ in rows[:6]]}
+    attempts = storm.round_retries + 1
+    timing["ge_chain"] = {
+        "shape": [N_CLIENTS, p1], "ms": ge_ms,
+        "calls_per_storm_round": attempts,
+        "share_of_storm_round": ge_ms * attempts / timing["storm"]["round_ms"],
+        "share_of_chaos_round": ge_ms / timing["chaos"]["round_ms"]}
+    out["timing"] = timing
+    log(f"[faults] {card}: times at N={N_CLIENTS} d={D} "
+        + json.dumps(timing))
+    del u, rounds
+    _free_card()
+
+    # -- (c) the storm on the stream and sharded engines
+    t0 = time.perf_counter()
+    n, d = SHARD_N, SHARD_TIMING_D
+    u8 = _shard_stack(d, seed=3)
+    storm8 = _storm_net(n)
+    engines_checked = []
+    for engine, kernels, devs in (("stream", True, 0),
+                                  ("sharded", False, SHARD_DEVICES)):
+        mono = _packet_round(_packet_cfg(kernels=kernels), storm8, u8, key, 2)
+        got, rose, by_shape = counted(lambda: _packet_round(
+            _packet_cfg(engine=engine, kernels=kernels, devices=devs),
+            storm8, u8, key, 2))
+        _fault_gates(f"storm {engine} engine vs monolithic N={n} d={d}",
+                     got, mono)
+        want = (_chunk_shapes(n, d, stream_engine.DEFAULT_CHUNK) if kernels
+                else {})
+        check(by_shape.get("gather_quant", {}) == want
+              and rose["stoch_quant"] == 0,
+              f"storm {engine}: B1 launched by shape {by_shape}, not {want}")
+        engines_checked.append(
+            f"{engine} (kernels {'on' if kernels else 'off'}, uploaders "
+            f"{got.n_active}, attempts {got.stats['attempts']})")
+        del mono, got
+    out["engines"] = {"n": n, "d": d, "bitwise_vs_monolithic": engines_checked,
+                      "seconds": time.perf_counter() - t0}
+    log(f"[faults] {card}: storm at N={n} d={d}: {engines_checked} bitwise "
+        "the monolithic chaos round")
+    del u8
+    _free_card()
+
+    # -- (d) the chaos and attack grids as FL tasks
+    t0 = time.perf_counter()
+    clients, test = _packet_fl_task()
+
+    def fl(cfg, dev=DEV, **kw):
+        return run_federated(clients, test, cfg, device=dev, **kw)
+
+    hist, recorders = {}, {}
+    for name in list(CHAOS_CELLS) + list(ATTACK_CELLS):
+        rec = _Recorder()
+        hist[name], rose, _ = counted(lambda: fl(_grid_fl_cfg(name),
+                                                 wrap_transport=rec.wrap))
+        check(rose["gather_quant"] == FAULTS_FL_ROUNDS,
+              f"FL {name} launched B1 {rose['gather_quant']} times")
+        check(all(math.isfinite(x) for x in hist[name].loss),
+              f"FL {name}: loss not finite")
+        recorders[name] = rec
+    plain, _, _ = counted(lambda: fl(_grid_fl_cfg("chaos-clean",
+                                                  plain=True)))
+    for name in ("chaos-clean", "attack-clean"):
+        check(_same_history(hist[name], plain),
+              f"FL {name} != the plain packet run")
+    clean = hist["attack-clean"].acc[-1]
+    defended = hist["attack-full-defended"].acc[-1]
+    undefended = hist["attack-full"].acc[-1]
+    defense = {"clean_acc": clean, "defended_acc": defended,
+               "undefended_acc": undefended,
+               "defended_ratio": defended / max(clean, 1e-9),
+               "undefended_ratio": undefended / max(clean, 1e-9)}
+    check(defended >= DEFENSE_FLOOR * clean,
+          f"the defense does not hold: {defense}")
+    check(undefended <= ATTACK_CEILING * clean,
+          f"the undefended attack does not collapse: {defense}")
+    at2 = {}
+    for name in ("attack-clean", "attack-full", "attack-full-defended"):
+        h2, _, _ = counted(lambda: fl(_grid_fl_cfg(name,
+                                                   seed=FAULTS_FL_SEED_2)))
+        at2[name] = h2.acc[-1]
+    clean2 = max(at2["attack-clean"], 1e-9)
+    seed2 = {"clean_acc": at2["attack-clean"],
+             "defended_ratio": at2["attack-full-defended"] / clean2,
+             "undefended_ratio": at2["attack-full"] / clean2}
+    defense[f"at net seed {FAULTS_FL_SEED_2}"] = seed2
+    check(seed2["defended_ratio"] >= SEED_2_FLOOR
+          and seed2["undefended_ratio"] <= ATTACK_CEILING,
+          f"the defense at net seed {FAULTS_FL_SEED_2} falls below "
+          f"{SEED_2_FLOOR} of clean or the attack holds: {seed2}")
+    gaps = {}
+    for name in ("chaos-burst-crash", "attack-full-defended"):
+        h = hist[name]
+        for where, kw in (
+                ("independent", {}),
+                ("fed the card's inputs", {"wrap_transport": (
+                    lambda inner, name=name: _CardInputs(
+                        inner, name, recorders[name].rounds))})):
+            h_cpu = fl(_grid_fl_cfg(name), dev="cpu", **kw)
+            gap = max(max(abs(a - b) for a, b in zip(h.acc, h_cpu.acc)),
+                      max(abs(a - b) for a, b in zip(h.loss, h_cpu.loss)))
+            check(gap <= FL_TOL, f"FL {name} card vs CPU ({where}): "
+                  f"acc/loss gap {gap}")
+            gaps[f"{name} ({where})"] = gap
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "defended.ckpt")
+        killed, _, _ = counted(lambda: fl(dataclasses.replace(
+            _grid_fl_cfg("attack-full-defended", rounds=FAULTS_FL_KILL),
+            ckpt_path=path)))
+        saved = load_run_state(path)["agg_state"]
+        resumed, _, _ = counted(lambda: fl(dataclasses.replace(
+            _grid_fl_cfg("attack-full-defended"), ckpt_path=path,
+            resume=True)))
+    check(saved is not None and saved["quarantine"].dtype == np.int32
+          and saved["rep"].dtype == np.float32
+          and bool((saved["rep"] > 0).any()),
+          "the killed defended run's checkpoint holds no reputation state")
+    check(len(killed) == FAULTS_FL_KILL
+          and _same_history(resumed, hist["attack-full-defended"]),
+          "the defended FL run killed and resumed != the uninterrupted run")
+    out["fl"] = {
+        "rounds": FAULTS_FL_ROUNDS,
+        "final_acc": {k: h.acc[-1] for k, h in hist.items()},
+        "wall_clock_s": {k: h.wall_clock[-1] for k, h in hist.items()},
+        "traffic_mb": {k: h.traffic_mb[-1] for k, h in hist.items()},
+        "defense": defense, "card_vs_cpu_gaps": gaps,
+        "resumed_at": FAULTS_FL_KILL,
+        "quarantined_at_kill": int((saved["quarantine"] > 0).sum()),
+        "seconds": time.perf_counter() - t0}
+    log(f"[faults] {card}: FL grids " + json.dumps(out["fl"]))
+
+    out["launches"] = counted.launches
+    out["launches_by_shape"] = counted.tally
+    log(f"[faults] {card}: B1/B2 launches {counted.launches} by shape "
+        f"{counted.tally}")
     return out
 
 
@@ -2731,6 +3188,7 @@ def main() -> int:
     stream = timed("stream", phase_stream, u_stack, key)
     shard = timed("shard", phase_shard, card)
     packet = timed("packet", phase_packet, card)
+    faults = timed("faults", phase_faults, card)
     allreduce = timed("allreduce", phase_allreduce, card)
     nccl = timed("nccl", phase_nccl, card)
     timing = timed("timing", phase_timing, u_stack, key)
@@ -2755,9 +3213,10 @@ def main() -> int:
         # unpack is on no path (no round calls it)
         on_stream = stream["launches"] if name == "gather_quant" else 0
         on_packet = packet["launches"].get(name, 0)
+        on_faults = faults["launches"].get(name, 0)
         launches = (main_path["launches"].get(name, 0)
                     + compare["launches"][name] + on_stream + on_packet
-                    + allreduce["launches"][name])
+                    + on_faults + allreduce["launches"][name])
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches,
                  "on_path": name != "unpack",
@@ -2773,7 +3232,7 @@ def main() -> int:
             at_shape = (main_path["round_launches"]
                         + compare["robust_round_launches"])
             fl = (launches - at_shape - allreduce["launches"][name]
-                  - on_stream - on_packet)
+                  - on_stream - on_packet - on_faults)
             cell = stream["b1_chunk"]
             entry["launches_at_shape"] = at_shape
             entry["also_at"] = [
@@ -2801,6 +3260,13 @@ def main() -> int:
             # stream engine's chunks under it, its FL loops), by shape
             entry["packet_launches"] = on_packet
             entry["packet_launches_by_shape"] = packet[
+                "launches_by_shape"].get(name, {})
+        if name in faults["launches"]:
+            # the chaos and robust paths' launches (their rounds at
+            # [N_CLIENTS, D] and the check width, the stream engine's chunks
+            # under the storm, the grids' FL loops), by shape
+            entry["faults_launches"] = on_faults
+            entry["faults_launches_by_shape"] = faults[
                 "launches_by_shape"].get(name, {})
         kernels.append(entry)
     b6 = serve["b6"]
@@ -2833,7 +3299,8 @@ def main() -> int:
                "phase_s": phase_s,
                **report, "compare": compare,
                "stream": {k: v for k, v in stream.items() if k != "b1_chunk"},
-               "shard": shard, "packet": packet, "allreduce": allreduce,
+               "shard": shard, "packet": packet, "faults": faults,
+               "allreduce": allreduce,
                "nccl": nccl,
                "serve": serve,
                **{k: v for k, v in timing.items() if k not in timed}}

@@ -7,13 +7,19 @@ windows, and a leaf -> root multi-switch hierarchy.  The FediAC round is
 a fixed-shape core of tensors (``netsim.batched``) run on the device of
 the update stack, and the lossless full-participation configuration is
 bit-identical to the in-memory ``core.fediac.aggregate_stack`` engine.
-The fault-injecting, async and adversarial cores of the reference are not
-ported yet.
+A :class:`FaultConfig` runs the round through the chaos core
+(``netsim.faults``: bursty loss, crashes, duplicates, reordering, register
+faults, quorum retry) and an ``AdversaryConfig`` through the
+Byzantine-robust core of :mod:`repro_torch.robust`; both are bitwise the
+plain core with their knobs at zero.  The asynchronous core is not ported
+yet.
 """
 
 from .batched import (make_fediac_packet_core, packet_dyn, reliable_upload,
                       scale_num_table, threshold_table)
 from .dataplane import DataplaneStats, SwitchDataplane, n_windows, slot_window
+from .faults import (FaultConfig, chaos_packet_dyn, gilbert_elliott_stationary,
+                     make_chaos_packet_core)
 from .hierarchy import aggregate_hierarchy, drain_hierarchy, leaf_assignment
 from .policies import (NetConfig, REGISTER_POLICIES, net_round_key,
                        register_accumulate, sample_participants,
@@ -33,4 +39,6 @@ __all__ = ["DataplaneStats", "SwitchDataplane", "n_windows", "slot_window",
            "windowed_drain", "InMemoryTransport", "PacketTransport",
            "RoundResult", "Transport", "make_fediac_packet_core",
            "packet_dyn", "reliable_upload", "scale_num_table",
-           "threshold_table", "REGISTER_POLICIES", "register_accumulate"]
+           "threshold_table", "FaultConfig", "chaos_packet_dyn",
+           "gilbert_elliott_stationary", "make_chaos_packet_core",
+           "REGISTER_POLICIES", "register_accumulate"]

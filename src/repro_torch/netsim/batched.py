@@ -134,6 +134,66 @@ def _at(table: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, i.reshape(1).long())[0]
 
 
+def _gia_compress(cfg: FediACConfig, spec, n: int, f_num_host, u, up, n_up,
+                  counts, q_keys, dyn):
+    """The GIA and phase-2 compress of a packet round: the scale f and the
+    threshold a from the announced uploader count (the ``[N+1]`` tables),
+    the round plan from the packet-derived counts, and the engine's
+    compress of every row (rows are key-independent, so each equals the
+    full-stack computation; the caller masks them).  Returns ``(f, a,
+    plan, q_bufs, residuals)``."""
+    stream, sharded = spec.name == "stream", spec.name == "sharded"
+    topk = cfg.compact_mode != "block"
+    m = torch.where(up, u.abs().amax(dim=1), 0.0).max()
+    f = _at(f_num_host.to(u.device), n_up) / torch.clamp_min(m, 1e-12)
+    a = _at(dyn["a_table"], n_up)
+    plan = build_round_plan(counts, cfg, n, a=a,
+                            with_dense_mask=(plan_wants_dense_mask(cfg)
+                                             or ((stream or sharded)
+                                                 and topk)),
+                            with_slot_map=(stream or sharded) and topk)
+    if stream:
+        q_bufs, res = stream_compress_stack(u, cfg, f, q_keys, plan,
+                                            chunk=spec.chunk or None)
+    elif sharded:
+        q_bufs, res = shard_compress_stack(u, cfg, f, q_keys, plan,
+                                           devices=spec.devices or None)
+    else:
+        q_bufs, res = phase2_compress(cfg)(u, cfg, f, q_keys, plan)
+    return f, a, plan, q_bufs, res
+
+
+def _scatter_delta(cfg: FediACConfig, summed, plan, d: int, kept, f,
+                   n_commit):
+    """De-compact the closed slots to a d-vector and divide by ``kept *
+    f`` (tensor by tensor); exactly 0 when nobody committed."""
+    scale = torch.clamp_min(kept, 1) * f
+    if cfg.compact_mode == "block":
+        delta = compaction.block_scatter(
+            summed, plan.keep_dense, plan.pos, d, cfg.block_size,
+            cfg.capacity_frac).to(torch.float32) / scale
+    else:
+        delta = scatter_sum(summed, plan.idx, plan.keep, cfg,
+                            d).to(torch.float32) / scale
+    return torch.where(n_commit > 0, delta, 0.0)
+
+
+def _value_ops(uploaded, leaf_of: np.ndarray, n_leaves: int, c_live: int):
+    """The register adds the value plane's walk would make (psim
+    semantics priced from the uploader mask; the sums are associative, so
+    the values never depend on the walk): each leaf adds its uploaders'
+    rows, and the root adds the live leaves' partials."""
+    dev = uploaded.device
+    by_leaf = torch.zeros(n_leaves, dtype=torch.int32, device=dev).index_add_(
+        0, torch.from_numpy(leaf_of.astype(np.int64)).to(dev),
+        uploaded.to(torch.int32))
+    ops = torch.clamp_min(by_leaf - 1, 0).sum(dtype=torch.int32) * c_live
+    if n_leaves > 1:
+        live_leaves = (by_leaf > 0).sum(dtype=torch.int32)
+        ops = ops + torch.clamp_min(live_leaves - 1, 0) * c_live
+    return ops
+
+
 def make_fediac_packet_core(cfg: FediACConfig, net: NetConfig,
                             n_clients: int):
     """Build the FediAC packet round.
@@ -156,9 +216,6 @@ def make_fediac_packet_core(cfg: FediACConfig, net: NetConfig,
     """
     spec = engines.resolve(cfg)
     n = int(n_clients)
-    stream = spec.name == "stream"
-    sharded = spec.name == "sharded"
-    topk = cfg.compact_mode != "block"
     leaf_of = leaf_assignment(n, net.n_leaves)
     slowdown = float(net.straggler_slowdown)
     f_num_host = torch.from_numpy(scale_num_table(cfg.bits, n))
@@ -218,34 +275,12 @@ def make_fediac_packet_core(cfg: FediACConfig, net: NetConfig,
 
         # ---- GIA + phase-2 compress: the exact core.fediac machinery
         # against the packet-derived counts, run for every row and masked
-        # by the uploader set (rows are key-independent of each other).
-        m = torch.where(up, u_stack.abs().amax(dim=1), 0.0).max()
-        f = _at(f_num_host.to(dev), n_up) / torch.clamp_min(m, 1e-12)
-        a = _at(dyn["a_table"], n_up)
-        plan = build_round_plan(counts, cfg, n, a=a,
-                                with_dense_mask=(plan_wants_dense_mask(cfg)
-                                                 or ((stream or sharded)
-                                                     and topk)),
-                                with_slot_map=(stream or sharded) and topk)
-        if stream:
-            q_bufs, res = stream_compress_stack(u_stack, cfg, f, q_keys, plan,
-                                                chunk=spec.chunk or None)
-        elif sharded:
-            q_bufs, res = shard_compress_stack(u_stack, cfg, f, q_keys, plan,
-                                               devices=spec.devices or None)
-        else:
-            q_bufs, res = phase2_compress(cfg)(u_stack, cfg, f, q_keys, plan)
+        # by the uploader set.
+        f, _, plan, q_bufs, res = _gia_compress(
+            cfg, spec, n, f_num_host, u_stack, up, n_up, counts, q_keys, dyn)
         summed = torch.where(up[:, None], q_bufs, 0).sum(dim=0,
                                                           dtype=torch.int32)
-        scale = torch.clamp_min(n_up, 1) * f
-        if cfg.compact_mode == "block":
-            delta = compaction.block_scatter(
-                summed, plan.keep_dense, plan.pos, d, cfg.block_size,
-                cfg.capacity_frac).to(torch.float32) / scale
-        else:
-            delta = scatter_sum(summed, plan.idx, plan.keep, cfg,
-                                d).to(torch.float32) / scale
-        delta = torch.where(n_up > 0, delta, 0.0)
+        delta = _scatter_delta(cfg, summed, plan, d, n_up, f, n_up)
         residuals = torch.where(up[:, None], res, u_stack)
         del res
 
@@ -265,19 +300,8 @@ def make_fediac_packet_core(cfg: FediACConfig, net: NetConfig,
                                    rates)
         wall = torch.where(n_up > 0, wall2, t_open)
 
-        # ---- value-plane accounting the register-bank walk would report
-        # (psim semantics priced from the masks; the sums are associative
-        # so the values never depend on the walk itself).
         c_live = q_bufs.shape[1]
-        up_by_leaf = torch.zeros(net.n_leaves, dtype=torch.int32,
-                                 device=dev).index_add_(
-            0, torch.from_numpy(leaf_of.astype(np.int64)).to(dev),
-            up.to(torch.int32))
-        live_leaves = (up_by_leaf > 0).sum(dtype=torch.int32)
-        value_ops = torch.clamp_min(up_by_leaf - 1, 0).sum(
-            dtype=torch.int32) * c_live
-        if net.n_leaves > 1:
-            value_ops = value_ops + torch.clamp_min(live_leaves - 1, 0) * c_live
+        value_ops = _value_ops(up, leaf_of, net.n_leaves, c_live)
         n_part = part.sum(dtype=torch.int32)
         delivered_chunks = chunk_ok.sum(dtype=torch.int32)
         zero = torch.zeros((), dtype=torch.int32, device=dev)

@@ -208,17 +208,23 @@ def service_time(profile: SwitchProfile, aligned: bool = True) -> float:
     return profile.rho * (1.0 if aligned else UNALIGNED_FACTOR)
 
 
-def _mean(x: torch.Tensor) -> torch.Tensor:
-    """float32 mean of a short vector (one rate per client) as
-    ``jnp.mean`` takes it: an in-order sum from +0.0 times the float32
-    reciprocal of the length.  XLA's CPU reduce adds in order up to 32
-    elements, so this is its value bit for bit there; past that its order
+def _sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum of a short vector (one value per client) from +0.0 in
+    index order.  XLA's CPU reduce adds in order up to 32 elements, so
+    this is ``jnp.sum``'s value bit for bit there; past that its order
     differs (by float32 rounding)."""
     acc = torch.zeros((), dtype=torch.float32, device=x.device)
     for v in x:
         acc = acc + v
-    return acc * torch.tensor(1.0 / x.shape[0], dtype=torch.float32,
-                              device=x.device)
+    return acc
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """float32 mean of a short vector as ``jnp.mean`` takes it: the
+    in-order sum times the float32 reciprocal of the length."""
+    return _sum_in_order(x) * torch.tensor(1.0 / x.shape[0],
+                                           dtype=torch.float32,
+                                           device=x.device)
 
 
 def download_time(download_packets, rates) -> torch.Tensor:

@@ -12,7 +12,9 @@ Two implementations share one interface:
   bank (multi-pass windows) and the optional leaf -> root hierarchy.
 
 For FediAC the packet round is the fixed-shape core of
-:mod:`.batched`, run on the device of the update stack, and
+:mod:`.batched` (or, under a ``FaultConfig``, the chaos core of
+:mod:`.faults`; under an ``AdversaryConfig``, the Byzantine-robust core of
+:mod:`repro_torch.robust`), run on the device of the update stack, and
 :class:`PacketTransport` is the thin host-side accounting wrapper around
 it.  The core re-uses the exact client-side machinery of
 :mod:`repro_torch.core.fediac` and only replaces the int32 client sum with
@@ -53,7 +55,8 @@ class RoundResult:
 
     delta: torch.Tensor        # mean update to apply to the global model
     residuals: torch.Tensor    # [N, d] error-feedback state (full stack)
-    state: Any                 # aggregator state (e.g. libra's heat EMA)
+    state: Any                 # aggregator state (libra's heat EMA, the
+                               # robust core's reputation / quarantine)
     traffic: TrafficStats
     load: SwitchLoad
     wall_clock_s: float | None  # simulated seconds; None = use the
@@ -175,26 +178,53 @@ class PacketTransport:
     # FediAC: the fixed-shape round core + host accounting
     # ------------------------------------------------------------------
     def _core_for(self, n: int, device: torch.device):
-        # the plain NetConfig core; the fault, async and adversary configs
-        # (subclasses of NetConfig, with cores of their own) come with the
-        # rest of the dataplane
         if (n, device) not in self._cores:
+            from repro_torch.robust import (AdversaryConfig,
+                                            adversary_packet_dyn,
+                                            make_robust_packet_core)
+
+            from .faults import (FaultConfig, chaos_packet_dyn,
+                                 make_chaos_packet_core)
             svc = service_time(self.profile, aligned=True)
-            core = make_fediac_packet_core(self.cfg, self.net, n)
-            dyn = packet_dyn(self.cfg, self.net, n, self.local_train_s, svc,
-                             device=device)
+            if isinstance(self.net, AdversaryConfig):
+                # the Byzantine-robust dataplane: attacks and switch-side
+                # defenses over the chaos core, bitwise it with every knob
+                # at zero (checked before FaultConfig, its superclass)
+                make, make_dyn = make_robust_packet_core, adversary_packet_dyn
+            elif isinstance(self.net, FaultConfig):
+                # the chaos dataplane: fault-injected, bitwise the plain
+                # core at zero fault rates
+                make, make_dyn = make_chaos_packet_core, chaos_packet_dyn
+            else:
+                make, make_dyn = make_fediac_packet_core, packet_dyn
+            core = make(self.cfg, self.net, n)
+            dyn = make_dyn(self.cfg, self.net, n, self.local_train_s, svc,
+                           device=device)
             net_key = prng.PRNGKey(self.net.seed, device=device)
             self._cores[(n, device)] = (core, dyn, net_key)
         return self._cores[(n, device)]
 
     def _fediac_round(self, u_stack, state, key, round_idx) -> RoundResult:
+        from repro_torch.robust import (ROBUST_STAT_FIELDS, AdversaryConfig,
+                                        init_reputation_state)
+
+        from .faults import CHAOS_STAT_FIELDS
         cfg = self.cfg
         n, d = u_stack.shape
         core, dyn, net_key = self._core_for(n, u_stack.device)
         rates = torch.as_tensor(self._round_rates(n), dtype=torch.float32,
                                 device=u_stack.device)
-        delta, residuals, aux = core(u_stack, key, net_key, round_idx, rates,
-                                     dyn)
+        if isinstance(self.net, AdversaryConfig):
+            # the reputation / quarantine state rides the aggregator-state
+            # slot, which the FL loop threads round to round and
+            # checkpoints as agg_state
+            if state is None:
+                state = init_reputation_state(n, device=u_stack.device)
+            delta, residuals, aux, state = core(u_stack, state, key, net_key,
+                                                round_idx, rates, dyn)
+        else:
+            delta, residuals, aux = core(u_stack, key, net_key, round_idx,
+                                         rates, dyn)
         n_up = int(aux["n_up"])
         n_part = int(aux["n_part"])
         tr = round_traffic(cfg, d)
@@ -216,12 +246,17 @@ class PacketTransport:
                                      else 1.0,
                  "register_occupancy": (float(aux["peak_live_slots"])
                                         / float(self.net.memory_slots))}
+        # the chaos and robust cores' extras
+        for k in CHAOS_STAT_FIELDS + ROBUST_STAT_FIELDS:
+            if k in aux:
+                stats[k] = int(aux[k])
         # voters that missed the quorum still spent their phase-1 bytes,
         # and every ARQ retransmission re-emits its packet's bytes
         retx_bytes = retx_byte_count(aux["retransmissions"],
                                      aux["retx_last"], tr.phase2_bytes,
                                      self.net.mtu)
-        upload_bytes = (tr.phase1_bytes * n_part + tr.phase2_bytes * n_up
+        n_up_wire = int(aux.get("n_up_wire", n_up))
+        upload_bytes = (tr.phase1_bytes * n_part + tr.phase2_bytes * n_up_wire
                         + retx_bytes)
         return RoundResult(delta, residuals, state, tr,
                            self._fediac_load(cfg, n_up if n_up else n, d, tr),

@@ -17,7 +17,8 @@ Ported: both transports with all six aggregators of
 :mod:`repro_torch.core.baselines` — the in-memory one (analytic
 wall-clock) and the packet dataplane of :mod:`repro_torch.netsim`
 (``transport="packet"`` with ``FLConfig.net``: simulated wall-clock and
-exact upload bytes) — FediAC on any ported engine (``FLConfig.engine``,
+exact upload bytes, on the plain, chaos or Byzantine-robust round core) —
+FediAC on any ported engine (``FLConfig.engine``,
 with bit-identical histories), round-granular checkpointing with bit-exact
 resume (``ckpt_path``, ``ckpt_every``, ``resume``), and the history
 readouts of the paper's figures and tables.  Probes raise
@@ -154,7 +155,10 @@ class FLConfig:
 
     Any aggregator of :mod:`repro_torch.core.baselines`, through
     ``transport="memory"`` or ``"packet"`` (the dataplane, with the
-    policies of ``net``, a ``netsim.NetConfig``).  Crash-safe recovery: with ``ckpt_path`` set, the loop's
+    policies of ``net``: a ``netsim.NetConfig``, a ``netsim.FaultConfig``
+    for the chaos core or a ``robust.AdversaryConfig`` for the
+    Byzantine-robust core, whose reputation state rides the aggregator
+    state).  Crash-safe recovery: with ``ckpt_path`` set, the loop's
     inter-round state (model, error-feedback stack, PRNG key, aggregator
     state, pricing accumulators, history) is saved atomically every
     ``ckpt_every`` rounds and after the last; ``resume=True`` restores it
@@ -174,7 +178,8 @@ class FLConfig:
     switch: SwitchProfile = field(default_factory=SwitchProfile.high)
     local_train_s: float = 0.1     # paper: 0.1 (FEMNIST) .. 3 (CIFAR-100)
     transport: str = "memory"      # "memory" | "packet"
-    net: object | None = None      # netsim.NetConfig for transport="packet"
+    net: object | None = None      # NetConfig / FaultConfig /
+                                   # AdversaryConfig for transport="packet"
     seed: int = 0
     ckpt_path: str | None = None   # round-granular run-state checkpoint file
     ckpt_every: int = 1            # save every k completed rounds

@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version, and
-a round, the packet round and the FL loop against the same on the CPU.  Every test needs an
+a round, the packet round (plain, chaos and Byzantine-robust) and the FL
+loop against the same on the CPU.  Every test needs an
 NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the reference package, so it also runs
@@ -310,6 +311,75 @@ def test_fl_packet_resume_on_card_bit_identical(cuda_device, tmp_path):
     assert h_cpu.traffic_mb == full.traffic_mb
     np.testing.assert_allclose(h_cpu.wall_clock, full.wall_clock, rtol=1e-6)
     np.testing.assert_allclose(h_cpu.loss, full.loss, rtol=1e-4)
+
+
+#: the chaos grid's burst-crash rates with a quorum floor and the rescale
+#: close, and the attack grid's defended cell (its budget cut to the width)
+_STORM = dict(ge_p_gb=0.05, ge_p_bg=0.4, ge_loss_bad=0.8, crash_rate=0.1,
+              dup_rate=0.1, reorder_jitter_s=0.002, quorum_floor=5,
+              register_policy="rescale", loss=0.05, n_leaves=2,
+              memory_slots=4096, seed=9)
+_DEFENDED = dict(byzantine_frac=0.25, collusion_frac=0.2,
+                 vote_stuff_frac=0.3, poison_scale=-8.0, vote_budget=2500,
+                 clip_ticks=1024, rep_threshold=2.0, rep_z_thresh=2.0,
+                 quarantine_rounds=3, seed=3)
+
+
+@pytest.mark.parametrize("name,vote_chunk", [("storm", 1), ("storm", 4),
+                                             ("defended", 1)])
+def test_fault_and_robust_rounds_on_card_equal_cpu(cuda_device, name,
+                                                   vote_chunk):
+    """The chaos storm and the defended attack on the card against the
+    CPU, kernels on (B1 at vote_chunk 1, B2 at 4), two rounds threading
+    the reputation state."""
+    from repro_torch.netsim import FaultConfig, PacketTransport
+    from repro_torch.robust import AdversaryConfig
+    rng = np.random.default_rng(10)
+    u = torch.from_numpy((rng.standard_normal((8, 40_000)) ** 3).astype(
+        np.float32))
+    if name == "storm":
+        cfg_kw, net = {}, FaultConfig(**_STORM)
+    else:
+        cfg_kw, net = dict(robust_agg="trim", trim_frac=0.2), \
+            AdversaryConfig(**_DEFENDED)
+    cfg = FediACConfig(vote_chunk=vote_chunk,
+                       engine=EngineSpec(use_pallas=True), **cfg_kw)
+    tp = PacketTransport("fediac", {"cfg": cfg}, net=net)
+    s_card = s_cpu = None
+    for rnd in range(2):
+        before = (gather_quant.gather_quant.launches,
+                  stoch_quant.stoch_quant.launches)
+        on_card = tp.round(u.to(cuda_device), s_card,
+                           prng.PRNGKey(rnd, device=cuda_device), rnd)
+        assert (gather_quant.gather_quant.launches - before[0],
+                stoch_quant.stoch_quant.launches - before[1]) == (
+            int(vote_chunk == 1), int(vote_chunk > 1))
+        on_cpu = tp.round(u, s_cpu, prng.PRNGKey(rnd, device="cpu"), rnd)
+        _packet_same(on_card, on_cpu)
+        if name == "defended":
+            for k in ("rep", "quarantine"):
+                assert _same(on_card.state[k], on_cpu.state[k])
+            s_card, s_cpu = on_card.state, on_cpu.state
+        u = on_cpu.residuals
+
+
+def test_chaos_engines_on_card(cuda_device):
+    """The storm on the stream engine (B1 per chunk) and the sharded
+    engine, each bitwise the monolithic chaos round on the card."""
+    from repro_torch.netsim import FaultConfig, PacketTransport
+    rng = np.random.default_rng(11)
+    u = torch.from_numpy((rng.standard_normal((8, 40_000)) ** 3).astype(
+        np.float32)).to(cuda_device)
+    key = prng.PRNGKey(3, device=cuda_device)
+    net = FaultConfig(**_STORM)
+    for spec in (EngineSpec("stream", chunk=5000, use_pallas=True),
+                 EngineSpec("sharded", devices=3)):
+        mono = FediACConfig(engine=EngineSpec(use_pallas=spec.use_pallas))
+        got = PacketTransport("fediac", {"cfg": FediACConfig(engine=spec)},
+                              net=net).round(u, None, key, 2)
+        want = PacketTransport("fediac", {"cfg": mono},
+                               net=net).round(u, None, key, 2)
+        _packet_same(got, want, rtol=0.0)
 
 
 def _close(got, want, dtype):
