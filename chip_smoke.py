@@ -96,7 +96,25 @@ Phases, each of which raises (and exits non-zero) on failure:
    chain's share, the idle share and launches per round; the B1 and B2
    counts zeroed just before each run and read just after, tallied by
    shape;
-11. allreduce path: 8 ranks on the one card over gloo (spawned once), each
+11. async path (``netsim/async_engine.py``: the quorum-or-deadline close,
+   and ``obs/``): at N = 32, d = 1,000,000, kernels on, under the lossy
+   dataplane on one switch, ``AsyncConfig`` at its defaults bitwise the
+   synchronous packet round in the four vote x compact modes and at
+   vote_chunk 4, and the in-memory ``"async"`` engine bitwise
+   ``aggregate_stack``; the async round (quorum 0.5, poly staleness, half
+   the clients straggling 16x) two rounds running, the second folding the
+   first's carry, card against CPU at d = 131,072, on the stream and
+   sharded engines at N = 8, d = 9,994,240 bitwise the monolithic one, and
+   timed beside the synchronous round; ``benchmarks/async_throughput.py``'s
+   throughput cells as FL tasks (6 clients, hidden (128, 64), 12 rounds),
+   its speedup (>= 1.5) and accuracy-gap (<= 0.05) gates, the async run
+   card against CPU, and a kill and resume with a partly filled carry;
+   that run with a ``RecordingProbe`` bitwise the run without one, its
+   trace validated and its report rendered, the probe's overhead on
+   ``benchmarks/obs.py``'s smoke cell gated at 1.10, a ``profiler_trace``
+   chrome trace; the B1 and B2 counts zeroed just before each run and
+   read just after, tallied by shape;
+12. allreduce path: 8 ranks on the one card over gloo (spawned once), each
    one client of ``fediac_allreduce`` at d = 12,500,992 (one device's
    slice of the reference's d ~ 1e8 sort-free scale cell) on the packed
    wire, threshold/block (``vote_pack`` + ``popcount``) and topk/topk
@@ -109,13 +127,13 @@ Phases, each of which raises (and exits non-zero) on failure:
    d = 1,000,000; then round and collective times; then one NCCL rank
    (world size 1) running the packed top-k allreduce and both mesh
    baselines, each bitwise against the same call on a one-rank gloo group;
-12. timing: each kernel, its plain version and its memory bound at the main
+13. timing: each kernel, its plain version and its memory bound at the main
    paths' shapes (``gather_quant`` at each of its shapes), and whole
    rounds.  A kernel's ``ms`` is CUDA-event time per wrapper call (it
    includes the host's launch work whenever that is slower than the
    kernel); ``device_ms`` is the kernel alone, per launch of a replayed
    CUDA graph of back-to-back calls;
-13. serve path: Qwen3-0.6B at full width and depth (28 layers, random
+14. serve path: Qwen3-0.6B at full width and depth (28 layers, random
    weights from ``PRNGKey(0)``) prefills 2 requests of 32,768 tokens
    through ``make_serve_step`` (the counts zeroed just before; B6's bf16
    tensor-core instance must launch once per layer), its logits finite;
@@ -2305,6 +2323,416 @@ def phase_faults(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The async path: the quorum-or-deadline close (netsim/async_engine.py)
+# behind PacketTransport and the FL loop, and the telemetry layer (obs/)
+# ---------------------------------------------------------------------------
+
+#: the async close of benchmarks/async_throughput.py: a quorum of half the
+#: announced uploaders, poly staleness weights off gamma 1
+ASYNC_KW = dict(quorum_frac=0.5, staleness_mode="poly", staleness_gamma=1.0)
+#: its straggler-variance cells; the high-straggler one is the round's
+ASYNC_CELLS = {"low-variance": dict(straggler_frac=0.3,
+                                    straggler_slowdown=2.0),
+               "high-straggler": dict(straggler_frac=0.5,
+                                      straggler_slowdown=16.0)}
+#: PACKET_NET on one switch (the async close runs at a single switch)
+ASYNC_BASE = dict(PACKET_NET, n_leaves=1)
+#: the card-vs-CPU width of the async round
+ASYNC_CHECK_D = 131_072
+#: the throughput cells' FL task (async_throughput.py): 6 clients, hidden
+#: (128, 64), 12 rounds, 2 local steps of batch 16, 10 ms of local
+#: training, the phase-2-heavy compression point (HEAVY_CFG), net seed 2;
+#: the resume cell: 8x stragglers, 5% loss, 12 bits, killed at round 6
+ASYNC_FL_ROUNDS, ASYNC_FL_KILL = 12, 6
+ASYNC_HEAVY_CFG = dict(a=2, bits=32, capacity_frac=0.5)
+ASYNC_RESUME_NET = dict(straggler_frac=0.5, straggler_slowdown=8.0,
+                        loss=0.05, seed=2)
+#: the reference benchmark's gates: async at least SPEEDUP_FLOOR x the
+#: synchronous round throughput at the high-straggler cell, and the final
+#: accuracy at most ACC_GAP_MAX below the synchronous run's in each cell
+SPEEDUP_FLOOR, ACC_GAP_MAX = 1.5, 0.05
+#: benchmarks/obs.py's smoke cell and gate: one warmed packet round on 8
+#: clients x 16,384 traced against untraced, interleaved reps, the median
+#: of the per-rep ratios at most OVERHEAD_MAX
+OBS_N, OBS_D, OBS_REPS, OVERHEAD_MAX = 8, 16_384, 40, 1.10
+
+
+def _async_fl_task():
+    from repro_torch.data import classification, partition_dirichlet
+    data = classification(n=1200, dim=16, n_classes=10, seed=0)
+    train, test = data.test_split(0.25)
+    return partition_dirichlet(train, 6, beta=0.5, seed=0), test
+
+
+def _async_fl_cfg(net, rounds=ASYNC_FL_ROUNDS, cfg_kw=None):
+    from repro_torch.core.engines import EngineSpec
+    from repro_torch.core.fediac import FediACConfig
+    from repro_torch.training.fl_loop import FLConfig
+    return FLConfig(n_clients=6, rounds=rounds, local_steps=2, batch=16,
+                    aggregator="fediac",
+                    agg_kwargs={"cfg": FediACConfig(**(cfg_kw
+                                                       or ASYNC_HEAVY_CFG))},
+                    engine=EngineSpec(use_pallas=True), local_train_s=0.01,
+                    transport="packet", net=net, seed=0)
+
+
+def _async_stats(r) -> dict:
+    from repro_torch.netsim import ASYNC_STAT_FIELDS
+    return {k: r.stats[k] for k in ASYNC_STAT_FIELDS}
+
+
+def _async_rounds(cfg, net, u, key, rounds=(1, 2)):
+    """Consecutive async packet rounds on one transport, the carry of each
+    threaded into the next."""
+    from repro_torch.netsim import PacketTransport
+    tp = PacketTransport("fediac", {"cfg": cfg}, net=net)
+    state, out = None, []
+    for t in rounds:
+        r = tp.round(u, state, key, t)
+        state = r.state
+        out.append(r)
+    return out
+
+
+def _async_gates(where, got, want, *, times_exact=True):
+    """:func:`_packet_gates` plus the async statistics, the announced
+    uploaders and the carry, bitwise."""
+    gaps = _packet_gates(where, got, want, times_exact=times_exact)
+    check(_async_stats(got) == _async_stats(want),
+          f"{where}: async stats {_async_stats(got)} != "
+          f"{_async_stats(want)}")
+    check(same_bits(got.state, want.state), f"{where}: the carry differs")
+    return gaps
+
+
+def phase_async(card: str) -> dict:
+    """The async close on the card: (a) at N_CLIENTS x D with the kernels
+    on, under PACKET_NET on one switch and a deadline at the median vote
+    arrival, AsyncConfig at its defaults bitwise the synchronous packet
+    round in the four vote x compact modes and at vote_chunk 4, and the
+    in-memory "async" engine (through aggregate_round with a probe, its
+    engine span recorded) bitwise aggregate_stack; (b) the async round
+    (ASYNC_KW, the high-straggler cell) two rounds running, the second
+    folding the first's carry, card against CPU at ASYNC_CHECK_D, the
+    stream (kernels on) and sharded (8 shards) engines bitwise the
+    monolithic one at 8 x SHARD_TIMING_D, and its times beside the
+    synchronous round's; (c) async_throughput.py's throughput cells as FL
+    tasks, sync against async, its speedup and accuracy gates, the async
+    high-straggler run card against CPU, and a kill and resume with a
+    partly filled carry; (d) that async run with a RecordingProbe bitwise
+    the run without one, its trace validated and its report rendered, the
+    probe's overhead on benchmarks/obs.py's smoke cell gated, and a
+    profiler_trace bracket's chrome trace.  The B1 and B2 counts are
+    zeroed just before each run and read just after, tallied by shape."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import load_run_state
+    from repro_torch.core import fediac, prng, stream_engine
+    from repro_torch.core.engines import EngineSpec
+    from repro_torch.netsim import AsyncConfig, NetConfig, PacketTransport
+    from repro_torch.obs import (RecordingProbe, load_trace, profiler_trace,
+                                 render_report, validate_records)
+    from repro_torch.training.fl_loop import run_federated
+    out = {"card": card}
+    counted = _QuantCounter()
+
+    # -- (a) the identity anchor at full width
+    t0 = time.perf_counter()
+    key = prng.PRNGKey(0, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    u = torch.randn(N_CLIENTS, D, device=DEV, generator=gen) ** 3
+    deadline = _vote_median(N_CLIENTS, D, PACKET_NET["seed"], round_idx=1)
+    base = dict(ASYNC_BASE, vote_deadline_s=deadline)
+    checked = []
+    for vm, cm, g in [(vm, cm, 1) for vm, cm in SHARD_MODES] + [
+            ("topk", "topk", 4)]:
+        cfg = _packet_cfg(vm, cm, g)
+        where = f"{vm}/{cm} g={g}"
+        want = {"gather_quant": int(g == 1 and cm == "topk"),
+                "stoch_quant": int(g > 1)}
+        sync, rose, _ = counted(lambda: _packet_round(
+            cfg, NetConfig(**base), u, key, 1))
+        check(rose == want, f"async anchor {where}: sync launches {rose}")
+        asy, rose, _ = counted(lambda: _packet_round(
+            cfg, AsyncConfig(**base), u, key, 1))
+        check(rose == want, f"async anchor {where}: async launches {rose}")
+        _packet_gates(f"full-quorum async {where} vs sync", asy, sync)
+        check(asy.stats["late_folded"] == asy.stats["late_bounced"] == 0
+              and asy.stats["quorum_met"] == 1
+              and int(asy.state["pending_n"]) == 0,
+              f"full-quorum async {where}: {_async_stats(asy)}")
+        eng_cfg = dataclasses.replace(cfg, engine=EngineSpec(
+            name="async", use_pallas=True))
+        eng_probe = RecordingProbe()
+        (d_a, r_a, c_a, _), rose, _ = counted(
+            lambda: fediac.aggregate_round(u, eng_cfg, key, probe=eng_probe))
+        check(rose == want, f"async engine {where}: launches {rose}")
+        check(any(r.get("name") == "engine-async"
+                  for r in eng_probe.tracer.records),
+              f"async engine {where}: no engine span recorded")
+        d_s, r_s, c_s, _ = fediac.aggregate_stack(u, cfg, key)
+        check(same_bits(d_a, d_s) and same_bits(r_a, r_s)
+              and same_bits(c_a, c_s),
+              f"the async engine {where} != aggregate_stack")
+        checked.append(where)
+        del sync, asy, d_a, r_a, d_s, r_s
+    out["anchor"] = {"n": N_CLIENTS, "d": D, "vote_deadline_s": deadline,
+                     "bitwise": checked, "seconds": time.perf_counter() - t0}
+    log(f"[async] {card}: full-quorum async == sync packet round and the "
+        f"async engine == aggregate_stack at N={N_CLIENTS} d={D}: {checked}")
+
+    # -- (b) the async round: two rounds, card against CPU, engines, times
+    t0 = time.perf_counter()
+    cfg = _packet_cfg()
+    net = AsyncConfig(**{**base, **ASYNC_CELLS["high-straggler"],
+                         **ASYNC_KW})
+    rounds, rose, _ = counted(lambda: _async_rounds(cfg, net, u, key))
+    check(rose == {"gather_quant": 2, "stoch_quant": 0},
+          f"async rounds: launches {rose}")
+    r1, r2 = rounds
+    check(r1.stats["late_folded"] > 0 and r2.stats["folded_in"]
+          == r1.stats["late_folded"],
+          f"async rounds fold no carry: {_async_stats(r1)} then "
+          f"{_async_stats(r2)}")
+    stats = [_async_stats(r) for r in rounds]
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    u_small = torch.randn(N_CLIENTS, ASYNC_CHECK_D, device=DEV,
+                          generator=gen) ** 3
+    card_rs, _, _ = counted(lambda: _async_rounds(cfg, net, u_small, key))
+    t_cpu = time.perf_counter()
+    cpu_rs = _async_rounds(cfg, net, u_small.cpu(), key.cpu())
+    t_cpu = time.perf_counter() - t_cpu
+    gaps = [_async_gates(f"async round {t} card vs CPU at "
+                         f"d={ASYNC_CHECK_D}", a, b, times_exact=False)
+            for t, a, b in zip((1, 2), card_rs, cpu_rs)]
+    check(cpu_rs[1].stats["folded_in"] > 0,
+          f"the check rounds fold no carry: {_async_stats(cpu_rs[1])}")
+    out["round"] = {
+        "n": N_CLIENTS, "d": D, "net": {**ASYNC_CELLS["high-straggler"],
+                                        **ASYNC_KW},
+        "stats": stats, "uploaders": [r.n_active for r in rounds],
+        "wall_clock_s": [r.wall_clock_s for r in rounds],
+        "card_vs_cpu": {"d": ASYNC_CHECK_D, "time_rel_gaps": gaps,
+                        "cpu_rounds_s": t_cpu,
+                        "stats": [_async_stats(r) for r in card_rs]},
+        "seconds": time.perf_counter() - t0}
+    log(f"[async] {card}: async rounds " + json.dumps(out["round"]))
+    del rounds, r1, r2, card_rs, cpu_rs, u_small
+
+    timing = {}
+    sync_net = NetConfig(**{**base, **ASYNC_CELLS["high-straggler"]})
+    for name, n_ in (("sync", sync_net), ("async", net)):
+        ms = wall_ms(lambda: _packet_round(cfg, n_, u, key, 1),
+                     iters=PACKET_TIME_ITERS)
+        rows = device_profile(lambda: _packet_round(cfg, n_, u, key, 1),
+                              iters=1)
+        busy = sum(r[1] for r in rows)
+        timing[name] = {
+            "round_ms": ms, "device_ms": busy,
+            "idle_share": 1.0 - busy / ms if rows else None,
+            "device_launches": sum(r[2] for r in rows),
+            "top_kernels": [(nm[:60], t, n) for nm, t, n in rows[:6]]}
+    out["timing"] = timing
+    log(f"[async] {card}: times at N={N_CLIENTS} d={D} " + json.dumps(timing))
+    del u
+    _free_card()
+
+    t0 = time.perf_counter()
+    n, d = SHARD_N, SHARD_TIMING_D
+    u8 = _shard_stack(d, seed=3)
+    net8 = AsyncConfig(**{**ASYNC_BASE, **ASYNC_CELLS["high-straggler"],
+                          **ASYNC_KW, "vote_deadline_s": _vote_median(
+                              n, d, PACKET_NET["seed"], round_idx=1)})
+    engines_checked = []
+    for engine, kernels, devs in (("stream", True, 0),
+                                  ("sharded", False, SHARD_DEVICES)):
+        mono = _async_rounds(_packet_cfg(kernels=kernels), net8, u8, key)
+        got, rose, by_shape = counted(lambda: _async_rounds(
+            _packet_cfg(engine=engine, kernels=kernels, devices=devs), net8,
+            u8, key))
+        for t, a, b in zip((1, 2), got, mono):
+            _async_gates(f"async round {t} {engine} engine vs monolithic "
+                         f"N={n} d={d}", a, b)
+        want = ({k: 2 * v for k, v in _chunk_shapes(
+            n, d, stream_engine.DEFAULT_CHUNK).items()} if kernels else {})
+        check(by_shape.get("gather_quant", {}) == want
+              and rose["stoch_quant"] == 0,
+              f"async {engine}: B1 launched by shape {by_shape}, not {want}")
+        engines_checked.append(
+            f"{engine} (kernels {'on' if kernels else 'off'}, late "
+            f"{got[0].stats['late_folded']}, folded in "
+            f"{got[1].stats['folded_in']})")
+        del mono, got
+    out["engines"] = {"n": n, "d": d, "bitwise_vs_monolithic": engines_checked,
+                      "seconds": time.perf_counter() - t0}
+    log(f"[async] {card}: N={n} d={d}: {engines_checked} bitwise the "
+        "monolithic async rounds")
+    del u8
+    _free_card()
+
+    # -- (c) the throughput cells as FL tasks
+    t0 = time.perf_counter()
+    clients, test = _async_fl_task()
+
+    def fl(cfg, dev=DEV, **kw):
+        return run_federated(clients, test, cfg, device=dev, **kw)
+
+    cells, hist = {}, {}
+    rec = _Recorder()
+    for name, strag in ASYNC_CELLS.items():
+        sync_h, rose, _ = counted(lambda: fl(_async_fl_cfg(
+            NetConfig(seed=2, **strag))))
+        check(rose["gather_quant"] == ASYNC_FL_ROUNDS,
+              f"FL sync {name} launched B1 {rose['gather_quant']} times")
+        wrap = rec.wrap if name == "high-straggler" else None
+        async_h, rose, _ = counted(lambda: fl(_async_fl_cfg(
+            AsyncConfig(seed=2, **strag, **ASYNC_KW)), wrap_transport=wrap))
+        check(rose["gather_quant"] == ASYNC_FL_ROUNDS,
+              f"FL async {name} launched B1 {rose['gather_quant']} times")
+        hist[name] = async_h
+        cells[name] = {
+            "sync_wall_s": sync_h.wall_clock[-1],
+            "async_wall_s": async_h.wall_clock[-1],
+            "speedup": sync_h.wall_clock[-1] / async_h.wall_clock[-1],
+            "sync_final_acc": sync_h.acc[-1],
+            "async_final_acc": async_h.acc[-1],
+            "acc_gap": sync_h.acc[-1] - async_h.acc[-1]}
+    check(cells["high-straggler"]["speedup"] >= SPEEDUP_FLOOR,
+          f"async speedup below {SPEEDUP_FLOOR}: {cells}")
+    check(all(c["acc_gap"] <= ACC_GAP_MAX for c in cells.values()),
+          f"async accuracy gap above {ACC_GAP_MAX}: {cells}")
+    high_cfg = _async_fl_cfg(AsyncConfig(
+        seed=2, **ASYNC_CELLS["high-straggler"], **ASYNC_KW))
+    fl_gaps = {}
+    for where, kw in (("independent", {}),
+                      ("fed the card's inputs", {"wrap_transport": (
+                          lambda inner: _CardInputs(inner, "async",
+                                                    rec.rounds))})):
+        h_cpu = fl(high_cfg, dev="cpu", **kw)
+        h = hist["high-straggler"]
+        check(_close_clock(h_cpu.wall_clock, h.wall_clock)
+              and h_cpu.traffic_mb == h.traffic_mb,
+              f"async FL card vs CPU ({where}): clock / traffic")
+        gap = max(max(abs(a - b) for a, b in zip(h.acc, h_cpu.acc)),
+                  max(abs(a - b) for a, b in zip(h.loss, h_cpu.loss)))
+        check(gap <= FL_TOL, f"async FL card vs CPU ({where}): acc/loss gap "
+              f"{gap}")
+        fl_gaps[where] = gap
+    resume_net = AsyncConfig(**ASYNC_RESUME_NET, **ASYNC_KW)
+    full, _, _ = counted(lambda: fl(_async_fl_cfg(
+        resume_net, cfg_kw=dict(a=2, bits=12))))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "async.ckpt")
+        killed, _, _ = counted(lambda: fl(dataclasses.replace(_async_fl_cfg(
+            resume_net, rounds=ASYNC_FL_KILL, cfg_kw=dict(a=2, bits=12)),
+            ckpt_path=path)))
+        saved = load_run_state(path)["agg_state"]
+        resumed, _, _ = counted(lambda: fl(dataclasses.replace(_async_fl_cfg(
+            resume_net, cfg_kw=dict(a=2, bits=12)), ckpt_path=path,
+            resume=True)))
+    check(saved is not None and int(saved["pending_n"]) > 0
+          and saved["pending"].dtype == np.float32,
+          "the killed async run's checkpoint holds no pending carry")
+    check(len(killed) == ASYNC_FL_KILL and _same_history(resumed, full),
+          "the async FL run killed and resumed != the uninterrupted run")
+    out["fl"] = {"rounds": ASYNC_FL_ROUNDS, "cells": cells,
+                 "speedup_floor": SPEEDUP_FLOOR, "acc_gap_max": ACC_GAP_MAX,
+                 "card_vs_cpu_gaps": fl_gaps, "resumed_at": ASYNC_FL_KILL,
+                 "pending_at_kill": int(saved["pending_n"]),
+                 "seconds": time.perf_counter() - t0}
+    log(f"[async] {card}: FL " + json.dumps(out["fl"]))
+
+    # -- (d) telemetry
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "async.jsonl")
+        # checkpointed every round, so the trace's ckpt spans time the
+        # save (the history is the same with or without it)
+        ckpt_cfg = dataclasses.replace(high_cfg,
+                                       ckpt_path=str(Path(tmp) / "a.ckpt"))
+        with RecordingProbe(path, profiler=True) as probe:
+            probed, _, _ = counted(lambda: fl(ckpt_cfg, probe=probe))
+        records = load_trace(path)
+    spans = {}
+    for r in records:
+        if r["type"] == "span" and r["clock"] == "host":
+            spans.setdefault(r["name"], []).append(r["dur_s"])
+    span_ms = {k: 1e3 * sum(v) / len(v) for k, v in spans.items()}
+    check(_same_history(probed, hist["high-straggler"]),
+          "the probed async FL run != the run without a probe")
+    errors = validate_records(records)
+    check(errors == [], f"the async FL trace fails validation: {errors[:3]}")
+    report = render_report(records)
+    check("round" in report and "phase1-vote_s" in report,
+          "the async FL report did not render")
+    prof = records[-1]["metrics"]["__profile__"]
+    check(prof["packet_core[n=6]"]["calls"] == ASYNC_FL_ROUNDS
+          and prof["packet_core[n=6]"]["device_s"] > 0,
+          f"the profiler missed the round cores: {prof}")
+
+    obs_cfg = dataclasses.replace(_packet_cfg(), a=2, bits=12)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    u_obs = torch.randn(OBS_N, OBS_D, device=DEV, generator=gen) ** 3
+    plain_tp = PacketTransport("fediac", {"cfg": obs_cfg}, net=NetConfig())
+    probed_tp = PacketTransport("fediac", {"cfg": obs_cfg}, net=NetConfig())
+    obs_probe = RecordingProbe(None, profiler=True)
+    probed_tp.attach_probe(obs_probe)
+
+    def untraced():
+        plain_tp.round(u_obs, None, key, 1)
+        torch.cuda.synchronize()
+
+    def traced():
+        with obs_probe.span("round", round=1):
+            r = probed_tp.round(u_obs, None, key, 1)
+            torch.cuda.synchronize()
+            obs_probe.metrics(r.to_metrics(), round=1)
+            st = r.stats
+            obs_probe.sim_phase("phase1-vote", 0.0, st["phase1_s"], round=1)
+            obs_probe.sim_phase("phase2-aggregate", st["phase1_s"],
+                                st["phase1_s"] + st["phase2_s"], round=1)
+
+    untraced()                   # warm both paths
+    traced()
+    times = {"traced": [], "untraced": []}
+    for _ in range(OBS_REPS):
+        for name, fn in (("traced", traced), ("untraced", untraced)):
+            t1 = time.perf_counter()
+            fn()
+            times[name].append(time.perf_counter() - t1)
+    obs_probe.close()
+    ratios = sorted(a / max(b, 1e-12) for a, b in zip(times["traced"],
+                                                       times["untraced"]))
+    ratio = (ratios[OBS_REPS // 2 - 1] + ratios[OBS_REPS // 2]) / 2
+    check(ratio <= OVERHEAD_MAX, f"probe overhead {ratio} > {OVERHEAD_MAX}")
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiler_trace(str(Path(tmp) / "prof")) as pt:
+            _async_rounds(cfg, net, u_obs, key, rounds=(1,))
+            torch.cuda.synchronize()
+        check(pt.path is not None, "profiler_trace wrote no chrome trace")
+        with open(pt.path) as fh:
+            n_events = len(json.load(fh)["traceEvents"])
+    check(n_events > 0, "the chrome trace holds no events")
+    out["telemetry"] = {
+        "trace_records": len(records), "profile": prof,
+        "span_ms_mean": span_ms,
+        "overhead": {"n": OBS_N, "d": OBS_D, "reps": OBS_REPS,
+                     "ratio": ratio, "max": OVERHEAD_MAX,
+                     "traced_ms_mean": 1e3 * sum(times["traced"]) / OBS_REPS,
+                     "untraced_ms_mean": 1e3 * sum(times["untraced"])
+                     / OBS_REPS},
+        "chrome_trace_events": n_events,
+        "seconds": time.perf_counter() - t0}
+    log(f"[async] {card}: telemetry " + json.dumps(out["telemetry"]))
+
+    out["launches"] = counted.launches
+    out["launches_by_shape"] = counted.tally
+    log(f"[async] {card}: B1/B2 launches {counted.launches} by shape "
+        f"{counted.tally}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The allreduce path: AR_RANKS clients, one rank each, on the one card
 # ---------------------------------------------------------------------------
 
@@ -3189,6 +3617,7 @@ def main() -> int:
     shard = timed("shard", phase_shard, card)
     packet = timed("packet", phase_packet, card)
     faults = timed("faults", phase_faults, card)
+    asyn = timed("async", phase_async, card)
     allreduce = timed("allreduce", phase_allreduce, card)
     nccl = timed("nccl", phase_nccl, card)
     timing = timed("timing", phase_timing, u_stack, key)
@@ -3214,9 +3643,10 @@ def main() -> int:
         on_stream = stream["launches"] if name == "gather_quant" else 0
         on_packet = packet["launches"].get(name, 0)
         on_faults = faults["launches"].get(name, 0)
+        on_async = asyn["launches"].get(name, 0)
         launches = (main_path["launches"].get(name, 0)
                     + compare["launches"][name] + on_stream + on_packet
-                    + on_faults + allreduce["launches"][name])
+                    + on_faults + on_async + allreduce["launches"][name])
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches,
                  "on_path": name != "unpack",
@@ -3232,7 +3662,7 @@ def main() -> int:
             at_shape = (main_path["round_launches"]
                         + compare["robust_round_launches"])
             fl = (launches - at_shape - allreduce["launches"][name]
-                  - on_stream - on_packet - on_faults)
+                  - on_stream - on_packet - on_faults - on_async)
             cell = stream["b1_chunk"]
             entry["launches_at_shape"] = at_shape
             entry["also_at"] = [
@@ -3268,6 +3698,13 @@ def main() -> int:
             entry["faults_launches"] = on_faults
             entry["faults_launches_by_shape"] = faults[
                 "launches_by_shape"].get(name, {})
+        if name in asyn["launches"]:
+            # the async path's launches (its rounds at [N_CLIENTS, D] and
+            # the check width, the stream engine's chunks under it, the
+            # throughput cells' and the resume cell's FL loops), by shape
+            entry["async_launches"] = on_async
+            entry["async_launches_by_shape"] = asyn[
+                "launches_by_shape"].get(name, {})
         kernels.append(entry)
     b6 = serve["b6"]
     instance_keys = ("launches", "ms", "device_ms", "plain_ms", "bound_ms",
@@ -3300,6 +3737,7 @@ def main() -> int:
                **report, "compare": compare,
                "stream": {k: v for k, v in stream.items() if k != "b1_chunk"},
                "shard": shard, "packet": packet, "faults": faults,
+               "async": asyn,
                "allreduce": allreduce,
                "nccl": nccl,
                "serve": serve,

@@ -1,17 +1,18 @@
 """The engine registry: one dispatch surface for the stacked FediAC round.
 
 A frozen :class:`EngineSpec` names an engine and carries its knobs;
-:func:`run` dispatches a round to the engine a config selects.  Three
+:func:`run` dispatches a round to the engine a config selects.  Four
 engines are ported, each bitwise equal to the others on the same inputs:
 ``"monolithic"`` (:func:`repro_torch.core.fediac.aggregate_stack`, which
 holds several ``[N, d]`` temporaries), ``"stream"``
 (:func:`repro_torch.core.stream_engine.aggregate_stream`, the same round
-in coordinate chunks with ``O(N·chunk)`` temporaries) and ``"sharded"``
+in coordinate chunks with ``O(N·chunk)`` temporaries), ``"sharded"``
 (:func:`repro_torch.core.shard_engine.aggregate_shard`, the round over
-coordinate shards, one per device).  The reference's ``"async"`` engine is
-a known name that raises ``NotImplementedError`` naming its ROADMAP item.
-The reference's ``axis`` knob names a jax mesh axis and has no
-counterpart here.
+coordinate shards, one per device) and ``"async"``
+(:func:`repro_torch.netsim.async_engine.aggregate_async_stack`, the
+stacked round with the register fold in a random event order).  The
+reference's ``axis`` knob names a jax mesh axis and has no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -60,18 +61,18 @@ def _run_sharded(spec, u_stack, cfg, key, a):
                            devices=spec.devices or None)
 
 
+def _run_async(spec, u_stack, cfg, key, a):
+    from repro_torch.netsim.async_engine import aggregate_async_stack
+    return aggregate_async_stack(u_stack, cfg, key, a=a)
+
+
 _RUNNERS = {"monolithic": _run_monolithic, "stream": _run_stream,
-            "sharded": _run_sharded}
-#: the reference's other engines, with the ROADMAP item that ports each
-_NOT_PORTED = {"async": "A9: netsim/async_engine.py"}
+            "sharded": _run_sharded, "async": _run_async}
 
 
 def _check_name(name: str) -> None:
     if name in _RUNNERS:
         return
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"engine {name!r} is not ported yet "
-                                  f"(ROADMAP {_NOT_PORTED[name]})")
     raise ValueError(f"unknown FediAC engine {name!r} "
                      f"(expected one of {', '.join(map(repr, _RUNNERS))})")
 

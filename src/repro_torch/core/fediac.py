@@ -326,10 +326,14 @@ def aggregate_stack(u_stack: torch.Tensor, cfg: FediACConfig, key: torch.Tensor,
 
 
 def aggregate_from_counts(u_stack: torch.Tensor, cfg: FediACConfig,
-                          key: torch.Tensor, counts: torch.Tensor, *, a=None):
+                          key: torch.Tensor, counts: torch.Tensor, *, a=None,
+                          close=None):
     """The rest of :func:`aggregate_stack` after phase 1: scale factor,
     consensus plan, phase 2 and the aggregate, from given vote counts.
-    Returns ``(delta, residuals)``."""
+    ``close(q) -> (summed, kept)`` closes the client axis of the quantized
+    stack (default :func:`.robust_agg.client_sum`).  Returns ``(delta,
+    residuals)``."""
+    close = close or (lambda q: robust_agg.client_sum(q, cfg))
     n, d = u_stack.shape
     q_keys = prng.split(key, 2 * n)[n:]
     # Scale factor from the global max magnitude (SwitchML-style).  The
@@ -349,21 +353,28 @@ def aggregate_from_counts(u_stack: torch.Tensor, cfg: FediACConfig,
         # the dense quantized stacks: no per-client compaction
         q_dense, residuals = _block_compress_dense(u_stack, cfg, f, q_keys,
                                                    plan)
-        summed, kept = robust_agg.client_sum(q_dense, cfg)
+        summed, kept = close(q_dense)
         delta = (torch.where(plan.keep_dense, summed, 0).to(torch.float32)
                  / (kept * f))
         return delta, residuals
     q_bufs, residuals = phase2_compress(cfg)(u_stack, cfg, f, q_keys, plan)
     # the PS's pipelined integer addition, or its trim / median close
-    summed, kept = robust_agg.client_sum(q_bufs, cfg)
+    summed, kept = close(q_bufs)
     delta = (scatter_sum(summed, plan.idx, plan.keep, cfg, d).to(torch.float32)
              / (kept * f))
     return delta, residuals
 
 
 def aggregate_round(u_stack: torch.Tensor, cfg: FediACConfig, key: torch.Tensor,
-                    *, a=None):
-    """Run one stacked round on the engine ``cfg.engine`` selects."""
+                    *, a=None, probe=None):
+    """Run one stacked round on the engine ``cfg.engine`` selects.
+
+    ``probe`` (a :mod:`repro_torch.obs` probe) puts a host span named
+    ``engine-<name>`` around the engine call; the round is the same with
+    or without it."""
+    if probe is not None and getattr(probe, "enabled", False):
+        with probe.span(f"engine-{engines.resolve(cfg).name}"):
+            return engines.run(u_stack, cfg, key, a=a)
     return engines.run(u_stack, cfg, key, a=a)
 
 

@@ -11,10 +11,16 @@ A :class:`FaultConfig` runs the round through the chaos core
 (``netsim.faults``: bursty loss, crashes, duplicates, reordering, register
 faults, quorum retry) and an ``AdversaryConfig`` through the
 Byzantine-robust core of :mod:`repro_torch.robust`; both are bitwise the
-plain core with their knobs at zero.  The asynchronous core is not ported
-yet.
+plain core with their knobs at zero.  An :class:`AsyncConfig` closes the
+round on a quorum or a deadline and carries late updates into the next
+round (``netsim.async_engine``), bitwise the plain core at full quorum.
 """
 
+from .async_engine import (ASYNC_DYN_FIELDS, ASYNC_STAT_FIELDS,
+                           LATE_POLICIES, STALENESS_MODES, AsyncConfig,
+                           AsyncServer, aggregate_async_stack,
+                           async_packet_dyn, init_async_carry,
+                           make_async_packet_core)
 from .batched import (make_fediac_packet_core, packet_dyn, reliable_upload,
                       scale_num_table, threshold_table)
 from .dataplane import DataplaneStats, SwitchDataplane, n_windows, slot_window
@@ -41,4 +47,7 @@ __all__ = ["DataplaneStats", "SwitchDataplane", "n_windows", "slot_window",
            "packet_dyn", "reliable_upload", "scale_num_table",
            "threshold_table", "FaultConfig", "chaos_packet_dyn",
            "gilbert_elliott_stationary", "make_chaos_packet_core",
-           "REGISTER_POLICIES", "register_accumulate"]
+           "REGISTER_POLICIES", "register_accumulate", "AsyncConfig",
+           "AsyncServer", "ASYNC_DYN_FIELDS", "ASYNC_STAT_FIELDS",
+           "LATE_POLICIES", "STALENESS_MODES", "aggregate_async_stack",
+           "async_packet_dyn", "init_async_carry", "make_async_packet_core"]

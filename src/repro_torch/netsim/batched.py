@@ -35,6 +35,8 @@ packet path in ``transport.py``.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 
@@ -54,9 +56,9 @@ from .policies import NetConfig, sample_participants, sample_stragglers
 from .timeline import (_masked_drain, deadline_mask, download_time,
                        lose_packets, poisson_arrivals, retransmit_delays)
 
-__all__ = ["threshold_table", "scale_num_table", "reliable_upload",
-           "retx_byte_count", "make_fediac_packet_core", "packet_dyn",
-           "PACKET_DYN_FIELDS"]
+__all__ = ["threshold_table", "scale_num_table", "upload_schedule",
+           "reliable_upload", "retx_byte_count", "make_fediac_packet_core",
+           "packet_dyn", "PACKET_DYN_FIELDS"]
 
 #: the per-scenario scalars of one packet round, as :func:`packet_dyn`
 #: builds them
@@ -83,21 +85,13 @@ def scale_num_table(bits: int, n_clients: int) -> np.ndarray:
                              for m in range(1, n_clients + 1)], np.float32)
 
 
-def reliable_upload(k_arr, k_retx, rates_rows, start, live_slots: int,
-                    wire_bytes: int, leaf_of: np.ndarray, svc, *,
-                    loss, rto_s, max_retries: int, memory_slots: int,
-                    n_leaves: int, mtu: int, not_before=0.0, row_mask=None):
-    """Schedule one reliable upload through the register windows — packet->
-    window map, Poisson arrivals, ARQ delays, hierarchical drain — shared
-    by the FediAC phase 2 (full rows + ``row_mask``) and the baseline path
-    (pre-filtered subset rows, ``row_mask=None``).  On the keys' device.
-
-    Returns ``(DrainStats, retransmission count, retransmissions of the
-    final partial packet, window count)``; the counts are int32 0-d
-    tensors.  The retransmitted *bytes* are reconstructed on the host by
-    :func:`retx_byte_count` — every packet but the last is MTU-sized, so
-    two bounded int32 counts carry the exact figure without an int32 byte
-    sum that would wrap at ~2.1 GB of retransmissions.
+def upload_schedule(k_arr, k_retx, rates_rows, start, live_slots: int,
+                    wire_bytes: int, *, loss, rto_s, max_retries: int,
+                    memory_slots: int, mtu: int, row_mask=None):
+    """The packets of one reliable upload before any drain: the packet ->
+    register-window map (host), the Poisson arrivals plus ARQ delays
+    (``+inf`` on rows outside ``row_mask``) and the retransmission counts.
+    Returns ``(arrivals [N, P], retx int32[N, P], packet_window, n_win)``.
     """
     live = max(int(live_slots), 1)
     n_win = n_windows(live, memory_slots)
@@ -111,8 +105,32 @@ def reliable_upload(k_arr, k_retx, rates_rows, start, live_slots: int,
     if row_mask is not None:
         arr = torch.where(row_mask[:, None], arr, _INF)
         retx = torch.where(row_mask[:, None], retx, 0)
-    fwd = n_packets(min(memory_slots, live) * 4, mtu)
-    st = drain_hierarchy(arr + delay, leaf_assignment(arr.shape[0], n_leaves)
+    return arr + delay, retx, pkt_window, n_win
+
+
+def reliable_upload(k_arr, k_retx, rates_rows, start, live_slots: int,
+                    wire_bytes: int, leaf_of: np.ndarray, svc, *,
+                    loss, rto_s, max_retries: int, memory_slots: int,
+                    n_leaves: int, mtu: int, not_before=0.0, row_mask=None):
+    """Schedule one reliable upload through the register windows — packet->
+    window map, Poisson arrivals, ARQ delays (:func:`upload_schedule`),
+    hierarchical drain — shared by the FediAC phase 2 (full rows +
+    ``row_mask``) and the baseline path (pre-filtered subset rows,
+    ``row_mask=None``).  On the keys' device.
+
+    Returns ``(DrainStats, retransmission count, retransmissions of the
+    final partial packet, window count)``; the counts are int32 0-d
+    tensors.  The retransmitted *bytes* are reconstructed on the host by
+    :func:`retx_byte_count` — every packet but the last is MTU-sized, so
+    two bounded int32 counts carry the exact figure without an int32 byte
+    sum that would wrap at ~2.1 GB of retransmissions.
+    """
+    arrd, retx, pkt_window, n_win = upload_schedule(
+        k_arr, k_retx, rates_rows, start, live_slots, wire_bytes, loss=loss,
+        rto_s=rto_s, max_retries=max_retries, memory_slots=memory_slots,
+        mtu=mtu, row_mask=row_mask)
+    fwd = n_packets(min(memory_slots, max(int(live_slots), 1)) * 4, mtu)
+    st = drain_hierarchy(arrd, leaf_assignment(arrd.shape[0], n_leaves)
                          if leaf_of is None else leaf_of,
                          pkt_window, n_win, n_leaves, svc, fwd,
                          not_before=not_before)
@@ -163,18 +181,22 @@ def _gia_compress(cfg: FediACConfig, spec, n: int, f_num_host, u, up, n_up,
     return f, a, plan, q_bufs, res
 
 
+def _scatter_slots(cfg: FediACConfig, summed, plan, d: int):
+    """De-compact closed (or weighted) slots to a float32 d-vector."""
+    if cfg.compact_mode == "block":
+        out = compaction.block_scatter(summed, plan.keep_dense, plan.pos, d,
+                                       cfg.block_size, cfg.capacity_frac)
+    else:
+        out = scatter_sum(summed, plan.idx, plan.keep, cfg, d)
+    return out.to(torch.float32)
+
+
 def _scatter_delta(cfg: FediACConfig, summed, plan, d: int, kept, f,
                    n_commit):
     """De-compact the closed slots to a d-vector and divide by ``kept *
     f`` (tensor by tensor); exactly 0 when nobody committed."""
-    scale = torch.clamp_min(kept, 1) * f
-    if cfg.compact_mode == "block":
-        delta = compaction.block_scatter(
-            summed, plan.keep_dense, plan.pos, d, cfg.block_size,
-            cfg.capacity_frac).to(torch.float32) / scale
-    else:
-        delta = scatter_sum(summed, plan.idx, plan.keep, cfg,
-                            d).to(torch.float32) / scale
+    delta = _scatter_slots(cfg, summed, plan, d) / (torch.clamp_min(kept, 1)
+                                                     * f)
     return torch.where(n_commit > 0, delta, 0.0)
 
 
@@ -192,6 +214,74 @@ def _value_ops(uploaded, leaf_of: np.ndarray, n_leaves: int, c_live: int):
         live_leaves = (by_leaf > 0).sum(dtype=torch.int32)
         ops = ops + torch.clamp_min(live_leaves - 1, 0) * c_live
     return ops
+
+
+def _phase1(cfg: FediACConfig, net: NetConfig, n: int, u_stack, key,
+            net_key, round_idx, rates, dyn):
+    """A packet round up to the GIA: the round's static geometry, its keys,
+    the participant and straggler masks, the lossy vote packets with the
+    deadline, the vote counts, phase 1's close ``t1``, the uploader mask and
+    the GIA broadcast's time.  Shared by the plain and the asynchronous
+    cores, which differ only after it."""
+    n_, d = u_stack.shape
+    assert n_ == n, (n_, n)
+    dev = u_stack.device
+    n_chunks = d // cfg.vote_chunk
+    tr = round_traffic(cfg, d)
+    p1_pkts = n_packets(tr.phase1_bytes, net.mtu)
+    gia_pkts = n_packets(-(-n_chunks // 8), net.mtu)
+    cov = -(-n_chunks // p1_pkts)      # chunk coords per vote packet
+    pkt_of_chunk = torch.as_tensor(
+        np.minimum(np.arange(n_chunks) // cov, p1_pkts - 1), device=dev)
+
+    rk = prng.fold_in(net_key, int(round_idx))
+    k_part, k_strag, k_arr1, k_loss1, k_arr2, k_retx = prng.split(rk, 6)
+    keys = prng.split(key, 2 * n)
+    vote_keys, q_keys = keys[:n], keys[n:]
+
+    # ---- round policies: masks, never index arrays.
+    part = sample_participants(k_part, n, dyn["participation"])
+    strag = sample_stragglers(k_strag, part, dyn["straggler_frac"])
+    slow = torch.where(strag, torch.tensor(float(net.straggler_slowdown),
+                                           dtype=torch.float32, device=dev),
+                       1.0)
+    train_s = dyn["local_train_s"] * slow
+    rates = torch.as_tensor(rates, dtype=torch.float32, device=dev)
+    eff_rates = rates / slow
+    svc = dyn["svc"]
+
+    # ---- phase 1: vote packets (lossy, no ARQ — the quorum absorbs).
+    # Votes are computed for all N rows (each from its own key, so each
+    # row equals the full-stack computation) and masked by delivery.
+    arr1 = poisson_arrivals(k_arr1, eff_rates, p1_pkts, train_s)
+    deliv = lose_packets(k_loss1, arr1.shape, dyn["loss"])
+    deliv = deliv & part[:, None]
+    if net.vote_deadline_s is not None:
+        deliv = deliv & deadline_mask(arr1, net.vote_deadline_s)
+    chunk_ok = deliv.index_select(1, pkt_of_chunk)
+    votes = client_vote_stack(u_stack, cfg, vote_keys)
+    # votes are 0/1, so their product with the delivery mask is an and
+    counts = (votes.to(torch.bool) & chunk_ok).sum(dim=0, dtype=torch.int32)
+    del votes
+    st1 = _masked_drain(torch.where(deliv, arr1, _INF), svc)
+    t1 = torch.where(st1.n_packets > 0, st1.completion_s,
+                     torch.where(part, train_s, -_INF).max())
+    if net.vote_deadline_s is not None:
+        t1 = torch.clamp_min(t1, float(np.float32(net.vote_deadline_s)))
+
+    # ---- quorum: who goes on to phase 2.
+    voter = chunk_ok.any(dim=1)
+    up = (part & voter) if net.drop_late_voters else part
+    n_part = part.sum(dtype=torch.int32)
+    return SimpleNamespace(
+        d=d, tr=tr, k_arr2=k_arr2, k_retx=k_retx,
+        q_keys=q_keys, part=part, strag=strag, rates=rates,
+        eff_rates=eff_rates, svc=svc, counts=counts, t1=t1, up=up,
+        n_up=up.sum(dtype=torch.int32), n_part=n_part,
+        n_strag=strag.sum(dtype=torch.int32),
+        votes_lost=n_part * p1_pkts - deliv.sum(dtype=torch.int32),
+        delivered_chunks=chunk_ok.sum(dtype=torch.int32),
+        t_gia=download_time(gia_pkts, rates))
 
 
 def make_fediac_packet_core(cfg: FediACConfig, net: NetConfig,
@@ -217,78 +307,31 @@ def make_fediac_packet_core(cfg: FediACConfig, net: NetConfig,
     spec = engines.resolve(cfg)
     n = int(n_clients)
     leaf_of = leaf_assignment(n, net.n_leaves)
-    slowdown = float(net.straggler_slowdown)
     f_num_host = torch.from_numpy(scale_num_table(cfg.bits, n))
 
     def core(u_stack, key, net_key, round_idx, rates, dyn):
-        n_, d = u_stack.shape
-        assert n_ == n, (n_, n)
+        g = _phase1(cfg, net, n, u_stack, key, net_key, round_idx, rates,
+                    dyn)
+        up, n_up = g.up, g.n_up
         dev = u_stack.device
-        n_chunks = d // cfg.vote_chunk
-        tr = round_traffic(cfg, d)
-        p1_pkts = n_packets(tr.phase1_bytes, net.mtu)
-        gia_pkts = n_packets(-(-n_chunks // 8), net.mtu)
-        cov = -(-n_chunks // p1_pkts)      # chunk coords per vote packet
-        pkt_of_chunk = torch.as_tensor(
-            np.minimum(np.arange(n_chunks) // cov, p1_pkts - 1), device=dev)
-
-        rk = prng.fold_in(net_key, int(round_idx))
-        k_part, k_strag, k_arr1, k_loss1, k_arr2, k_retx = prng.split(rk, 6)
-        keys = prng.split(key, 2 * n)
-        vote_keys, q_keys = keys[:n], keys[n:]
-
-        # ---- round policies: masks, never index arrays.
-        part = sample_participants(k_part, n, dyn["participation"])
-        strag = sample_stragglers(k_strag, part, dyn["straggler_frac"])
-        slow = torch.where(strag, torch.tensor(slowdown, dtype=torch.float32,
-                                               device=dev), 1.0)
-        train_s = dyn["local_train_s"] * slow
-        rates = torch.as_tensor(rates, dtype=torch.float32, device=dev)
-        eff_rates = rates / slow
-        svc = dyn["svc"]
-
-        # ---- phase 1: vote packets (lossy, no ARQ — the quorum absorbs).
-        # Votes are computed for all N rows (each from its own key, so each
-        # row equals the full-stack computation) and masked by delivery.
-        arr1 = poisson_arrivals(k_arr1, eff_rates, p1_pkts, train_s)
-        deliv = lose_packets(k_loss1, arr1.shape, dyn["loss"])
-        deliv = deliv & part[:, None]
-        if net.vote_deadline_s is not None:
-            deliv = deliv & deadline_mask(arr1, net.vote_deadline_s)
-        chunk_ok = deliv.index_select(1, pkt_of_chunk)
-        votes = client_vote_stack(u_stack, cfg, vote_keys)
-        # votes are 0/1, so their product with the delivery mask is an and
-        counts = (votes.to(torch.bool) & chunk_ok).sum(dim=0,
-                                                       dtype=torch.int32)
-        del votes
-        st1 = _masked_drain(torch.where(deliv, arr1, _INF), svc)
-        t1 = torch.where(st1.n_packets > 0, st1.completion_s,
-                         torch.where(part, train_s, -_INF).max())
-        if net.vote_deadline_s is not None:
-            t1 = torch.clamp_min(t1, float(np.float32(net.vote_deadline_s)))
-
-        # ---- quorum: who goes on to phase 2.
-        voter = chunk_ok.any(dim=1)
-        up = (part & voter) if net.drop_late_voters else part
-        n_up = up.sum(dtype=torch.int32)
-        t_gia = download_time(gia_pkts, rates)
 
         # ---- GIA + phase-2 compress: the exact core.fediac machinery
         # against the packet-derived counts, run for every row and masked
         # by the uploader set.
         f, _, plan, q_bufs, res = _gia_compress(
-            cfg, spec, n, f_num_host, u_stack, up, n_up, counts, q_keys, dyn)
+            cfg, spec, n, f_num_host, u_stack, up, n_up, g.counts, g.q_keys,
+            dyn)
         summed = torch.where(up[:, None], q_bufs, 0).sum(dim=0,
                                                           dtype=torch.int32)
-        delta = _scatter_delta(cfg, summed, plan, d, n_up, f, n_up)
+        delta = _scatter_delta(cfg, summed, plan, g.d, n_up, f, n_up)
         residuals = torch.where(up[:, None], res, u_stack)
         del res
 
         # ---- phase 2: reliable int32 packets through the register bank.
-        t_open = t1 + t_gia
+        t_open = g.t1 + g.t_gia
         st2, n_retx, retx_last, n_win = reliable_upload(
-            k_arr2, k_retx, eff_rates, t_open, q_bufs.shape[1],
-            tr.phase2_bytes, leaf_of, svc, loss=dyn["loss"],
+            g.k_arr2, g.k_retx, g.eff_rates, t_open, q_bufs.shape[1],
+            g.tr.phase2_bytes, leaf_of, g.svc, loss=dyn["loss"],
             rto_s=net.rto_s, max_retries=net.max_retries,
             memory_slots=net.memory_slots, n_leaves=net.n_leaves,
             mtu=net.mtu, not_before=t_open, row_mask=up)
@@ -296,27 +339,25 @@ def make_fediac_packet_core(cfg: FediACConfig, net: NetConfig,
         # multi-leaf drain completes at -inf; clamp the phase-2 clock to
         # its start so the stats stay finite (wall falls back below)
         t2 = torch.maximum(st2.completion_s, t_open)
-        wall2 = t2 + download_time(n_packets(tr.phase2_bytes, net.mtu),
-                                   rates)
+        wall2 = t2 + download_time(n_packets(g.tr.phase2_bytes, net.mtu),
+                                   g.rates)
         wall = torch.where(n_up > 0, wall2, t_open)
 
         c_live = q_bufs.shape[1]
         value_ops = _value_ops(up, leaf_of, net.n_leaves, c_live)
-        n_part = part.sum(dtype=torch.int32)
-        delivered_chunks = chunk_ok.sum(dtype=torch.int32)
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         aux = {
-            "participants": part, "stragglers": strag, "uploaders": up,
-            "counts": counts,
-            "n_part": n_part, "n_up": n_up,
-            "n_strag": strag.sum(dtype=torch.int32),
-            "votes_lost": n_part * p1_pkts - deliv.sum(dtype=torch.int32),
+            "participants": g.part, "stragglers": g.strag, "uploaders": up,
+            "counts": g.counts,
+            "n_part": g.n_part, "n_up": n_up,
+            "n_strag": g.n_strag,
+            "votes_lost": g.votes_lost,
             "retransmissions": n_retx, "retx_last": retx_last,
-            "wall_clock_s": wall, "phase1_s": t1,
-            "phase2_s": t2 - t1,
+            "wall_clock_s": wall, "phase1_s": g.t1,
+            "phase2_s": t2 - g.t1,
             "mean_wait_s": st2.mean_wait_s,
-            "aggregation_ops": delivered_chunks + torch.where(n_up > 0,
-                                                              value_ops, zero),
+            "aggregation_ops": g.delivered_chunks
+                               + torch.where(n_up > 0, value_ops, zero),
             "peak_live_slots": torch.where(
                 n_up > 0, zero + min(net.memory_slots, c_live), zero),
             "passes": n_win,

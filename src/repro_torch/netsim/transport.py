@@ -14,7 +14,8 @@ Two implementations share one interface:
 For FediAC the packet round is the fixed-shape core of
 :mod:`.batched` (or, under a ``FaultConfig``, the chaos core of
 :mod:`.faults`; under an ``AdversaryConfig``, the Byzantine-robust core of
-:mod:`repro_torch.robust`), run on the device of the update stack, and
+:mod:`repro_torch.robust`; under an ``AsyncConfig``, the quorum-or-deadline
+core of :mod:`.async_engine`), run on the device of the update stack, and
 :class:`PacketTransport` is the thin host-side accounting wrapper around
 it.  The core re-uses the exact client-side machinery of
 :mod:`repro_torch.core.fediac` and only replaces the int32 client sum with
@@ -124,6 +125,13 @@ class InMemoryTransport:
 
     def __init__(self, agg):
         self.agg = agg
+        self.probe = None
+
+    def attach_probe(self, probe) -> None:
+        """Store a :mod:`repro_torch.obs` probe (observation only: the
+        in-memory round is untouched; the FL loop emits this transport's
+        RoundResult metrics)."""
+        self.probe = probe
 
     def round(self, u_stack, state, key, round_idx: int = 0) -> RoundResult:
         delta, residuals, state, traffic, load = self.agg(u_stack, state, key)
@@ -161,6 +169,23 @@ class PacketTransport:
         else:
             self.cfg = None
             self._agg = make_aggregator(aggregator, **self.agg_kwargs)
+        self.probe = None
+
+    def attach_probe(self, probe) -> None:
+        """Attach a :mod:`repro_torch.obs` probe.  Observation only: an
+        enabled probe wraps the packet cores (call counts and times, see
+        ``obs.torchprof``), and the cores and their outputs are the same
+        with or without it."""
+        self.probe = probe
+        if self.name == "fediac" and probe is not None and probe.enabled:
+            self._cores = {k: (self._wrap(core, k[0]), dyn, net_key)
+                           for k, (core, dyn, net_key)
+                           in self._cores.items()}
+
+    def _wrap(self, core, n: int):
+        if self.probe is not None and self.probe.enabled:
+            return self.probe.wrap_jit(core, f"packet_core[n={n}]")
+        return core
 
     # ------------------------------------------------------------------
     def _round_rates(self, n: int) -> np.ndarray:
@@ -183,10 +208,16 @@ class PacketTransport:
                                             adversary_packet_dyn,
                                             make_robust_packet_core)
 
+            from .async_engine import (AsyncConfig, async_packet_dyn,
+                                       make_async_packet_core)
             from .faults import (FaultConfig, chaos_packet_dyn,
                                  make_chaos_packet_core)
             svc = service_time(self.profile, aligned=True)
-            if isinstance(self.net, AdversaryConfig):
+            if isinstance(self.net, AsyncConfig):
+                # the quorum-or-deadline close, bitwise the plain core at
+                # full quorum with no deadline
+                make, make_dyn = make_async_packet_core, async_packet_dyn
+            elif isinstance(self.net, AdversaryConfig):
                 # the Byzantine-robust dataplane: attacks and switch-side
                 # defenses over the chaos core, bitwise it with every knob
                 # at zero (checked before FaultConfig, its superclass)
@@ -201,25 +232,30 @@ class PacketTransport:
             dyn = make_dyn(self.cfg, self.net, n, self.local_train_s, svc,
                            device=device)
             net_key = prng.PRNGKey(self.net.seed, device=device)
-            self._cores[(n, device)] = (core, dyn, net_key)
+            self._cores[(n, device)] = (self._wrap(core, n), dyn, net_key)
         return self._cores[(n, device)]
 
     def _fediac_round(self, u_stack, state, key, round_idx) -> RoundResult:
         from repro_torch.robust import (ROBUST_STAT_FIELDS, AdversaryConfig,
                                         init_reputation_state)
 
+        from .async_engine import (ASYNC_STAT_FIELDS, AsyncConfig,
+                                   init_async_carry)
         from .faults import CHAOS_STAT_FIELDS
         cfg = self.cfg
         n, d = u_stack.shape
         core, dyn, net_key = self._core_for(n, u_stack.device)
         rates = torch.as_tensor(self._round_rates(n), dtype=torch.float32,
                                 device=u_stack.device)
-        if isinstance(self.net, AdversaryConfig):
-            # the reputation / quarantine state rides the aggregator-state
-            # slot, which the FL loop threads round to round and
-            # checkpoints as agg_state
+        if isinstance(self.net, (AsyncConfig, AdversaryConfig)):
+            # the async carry (pending late folds) and the robust
+            # reputation / quarantine state ride the aggregator-state slot,
+            # which the FL loop threads round to round and checkpoints as
+            # agg_state
             if state is None:
-                state = init_reputation_state(n, device=u_stack.device)
+                state = (init_async_carry(d, device=u_stack.device)
+                         if isinstance(self.net, AsyncConfig)
+                         else init_reputation_state(n, device=u_stack.device))
             delta, residuals, aux, state = core(u_stack, state, key, net_key,
                                                 round_idx, rates, dyn)
         else:
@@ -246,12 +282,17 @@ class PacketTransport:
                                      else 1.0,
                  "register_occupancy": (float(aux["peak_live_slots"])
                                         / float(self.net.memory_slots))}
-        # the chaos and robust cores' extras
-        for k in CHAOS_STAT_FIELDS + ROBUST_STAT_FIELDS:
+        # the chaos, async and robust cores' extras
+        for k in CHAOS_STAT_FIELDS + ASYNC_STAT_FIELDS + ROBUST_STAT_FIELDS:
             if k in aux:
-                stats[k] = int(aux[k])
+                stats[k] = (float(aux[k]) if k in ("staleness_s_sum",
+                                                   "carry_weight")
+                            else int(aux[k]))
         # voters that missed the quorum still spent their phase-1 bytes,
-        # and every ARQ retransmission re-emits its packet's bytes
+        # and every ARQ retransmission re-emits its packet's bytes; a late
+        # async uploader's value packets reached the wire whether its
+        # update folds next round or bounces, so the price counts the
+        # announced uploaders
         retx_bytes = retx_byte_count(aux["retransmissions"],
                                      aux["retx_last"], tr.phase2_bytes,
                                      self.net.mtu)

@@ -20,9 +20,10 @@ wall-clock) and the packet dataplane of :mod:`repro_torch.netsim`
 exact upload bytes, on the plain, chaos or Byzantine-robust round core) —
 FediAC on any ported engine (``FLConfig.engine``,
 with bit-identical histories), round-granular checkpointing with bit-exact
-resume (``ckpt_path``, ``ckpt_every``, ``resume``), and the history
-readouts of the paper's figures and tables.  Probes raise
-``NotImplementedError``.
+resume (``ckpt_path``, ``ckpt_every``, ``resume``), the history readouts
+of the paper's figures and tables, and round probes (``probe=``, a
+:mod:`repro_torch.obs` probe: spans, metrics and the simulated phases of
+every round, the history bit-identical with or without one).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from repro_torch.core import engines, prng
 from repro_torch.core.pytree import tree_map
 from repro_torch.core.baselines import make_transport
 from repro_torch.core.fediac import FediACConfig
+from repro_torch.obs import as_probe
 from repro_torch.switch import (SwitchProfile, client_rates, n_packets,
                                 round_wall_clock)
 from repro_torch.validate import (check_at_least, check_choice,
@@ -156,9 +158,10 @@ class FLConfig:
     Any aggregator of :mod:`repro_torch.core.baselines`, through
     ``transport="memory"`` or ``"packet"`` (the dataplane, with the
     policies of ``net``: a ``netsim.NetConfig``, a ``netsim.FaultConfig``
-    for the chaos core or a ``robust.AdversaryConfig`` for the
+    for the chaos core, a ``robust.AdversaryConfig`` for the
     Byzantine-robust core, whose reputation state rides the aggregator
-    state).  Crash-safe recovery: with ``ckpt_path`` set, the loop's
+    state, or a ``netsim.AsyncConfig`` for the quorum-or-deadline close,
+    whose carry of late updates rides it the same way).  Crash-safe recovery: with ``ckpt_path`` set, the loop's
     inter-round state (model, error-feedback stack, PRNG key, aggregator
     state, pricing accumulators, history) is saved atomically every
     ``ckpt_every`` rounds and after the last; ``resume=True`` restores it
@@ -179,7 +182,8 @@ class FLConfig:
     local_train_s: float = 0.1     # paper: 0.1 (FEMNIST) .. 3 (CIFAR-100)
     transport: str = "memory"      # "memory" | "packet"
     net: object | None = None      # NetConfig / FaultConfig /
-                                   # AdversaryConfig for transport="packet"
+                                   # AdversaryConfig / AsyncConfig for
+                                   # transport="packet"
     seed: int = 0
     ckpt_path: str | None = None   # round-granular run-state checkpoint file
     ckpt_every: int = 1            # save every k completed rounds
@@ -321,17 +325,26 @@ def make_client_round(dims: tuple[int, ...], batch: int, local_steps: int):
     return client_round
 
 
+def _carry_in(u_stack: torch.Tensor, e_stack: torch.Tensor) -> torch.Tensor:
+    """Fold the error-feedback carry into the fresh update stack."""
+    return u_stack + e_stack
+
+
 def run_federated(clients, test, flcfg: FLConfig, *, hidden=(128, 64),
                   device=None, probe=None, wrap_transport=None) -> FLHistory:
     """Run the FL loop on ``device`` (the card unless told otherwise).
+
+    ``probe`` is an optional :mod:`repro_torch.obs` probe.  It observes
+    only host-side values the loop already computes (plus the transport's
+    stats dict), so with any probe, the default ``NullProbe`` included,
+    the history is bit-identical to the run without one.
 
     ``wrap_transport``, if given, is applied to the round transport the
     loop builds from ``flcfg``, and the loop uses what it returns: an
     object whose ``round(u_stack, state, key, t)`` gives the round's
     result.  It lets a caller watch each round's aggregation, or run it
     on inputs of its own."""
-    if probe is not None:
-        raise NotImplementedError("probes are not ported yet (ROADMAP A10)")
+    probe = as_probe(probe)
     device = resolve_device(device)
     rng = np.random.default_rng(flcfg.seed)
     dim = clients[0].x.shape[1]
@@ -360,6 +373,14 @@ def run_federated(clients, test, flcfg: FLConfig, *, hidden=(128, 64),
     if wrap_transport is not None:
         transport = wrap_transport(transport)
     local_round = make_client_round(dims, flcfg.batch, flcfg.local_steps)
+    # host-side observation only: wrap_jit counts calls and times them
+    # around the same callables (NullProbe returns them unchanged), and
+    # transports with probe support wrap their round cores
+    local_round = probe.wrap_jit(local_round, "local_round")
+    carry_in = probe.wrap_jit(_carry_in, "carry_in")
+    attach = getattr(transport, "attach_probe", None)
+    if attach is not None:
+        attach(probe)
 
     e_stack = torch.zeros((n, d), dtype=torch.float32, device=device)
     agg_state = None
@@ -382,36 +403,82 @@ def run_federated(clients, test, flcfg: FLConfig, *, hidden=(128, 64),
     xt = torch.from_numpy(test.x).to(device)
     yt = torch.from_numpy(test.y).to(device)
 
-    for t in range(start_round + 1, flcfg.rounds + 1):
-        lr = flcfg.lr0 / (1.0 + np.sqrt(t) / flcfg.lr_tau)
-        key, k1, k2 = prng.split(key, 3)
-        u_stack, losses = local_round(flat, k1, float(lr), cx, cy)
-        u_stack = u_stack + e_stack
-        res = transport.round(u_stack, agg_state, k2, t)
-        delta, e_stack, agg_state = res.delta, res.residuals, res.state
-        traffic, load = res.traffic, res.load
-        flat = flat - delta
+    if probe.enabled:
+        probe.run_start(kind="fl_run", aggregator=flcfg.aggregator,
+                        transport=flcfg.transport,
+                        engine=(engines.get(flcfg.engine).name
+                                if flcfg.engine is not None else None),
+                        n_clients=n, rounds=flcfg.rounds, seed=flcfg.seed,
+                        resumed_from=start_round if start_round else None)
 
-        if res.wall_clock_s is not None:
-            t_cum += res.wall_clock_s       # packet-simulated round time
-        else:
-            t_cum += round_wall_clock(
-                packets_per_client=load.packets_per_client,
-                download_packets=n_packets(traffic.total_bytes),
-                rates=rates, profile=flcfg.switch,
-                local_train_s=flcfg.local_train_s, aligned=load.aligned)
-        # uploads come from the clients that sent this round (the packet
-        # transport reports exact bytes: dropped voters still spent phase
-        # 1); the broadcast reaches all N clients.
-        up_bytes = (res.upload_bytes if res.upload_bytes is not None
-                    else traffic.total_bytes * res.n_active)
-        mb_cum += up_bytes / 1e6 + traffic.total_bytes * n / 1e6
-        model.load_flat(flat)
-        hist.append_round(acc=accuracy(model, xt, yt), wall_clock=t_cum,
-                          traffic_mb=mb_cum, loss=float(losses.mean()))
-        if flcfg.ckpt_path and (t % flcfg.ckpt_every == 0
-                                or t == flcfg.rounds):
-            save_run_state(flcfg.ckpt_path, flat=flat, e_stack=e_stack,
-                           key=key, agg_state=agg_state, round_idx=t,
-                           t_cum=t_cum, mb_cum=mb_cum, history=hist)
+    for t in range(start_round + 1, flcfg.rounds + 1):
+        with probe.span("round", round=t):
+            lr = flcfg.lr0 / (1.0 + np.sqrt(t) / flcfg.lr_tau)
+            key, k1, k2 = prng.split(key, 3)
+            with probe.span("local-train", round=t):
+                u_stack, losses = local_round(flat, k1, float(lr), cx, cy)
+                u_stack = carry_in(u_stack, e_stack)
+            with probe.span("aggregate", round=t):
+                res = transport.round(u_stack, agg_state, k2, t)
+            delta, e_stack, agg_state = res.delta, res.residuals, res.state
+            traffic, load = res.traffic, res.load
+            flat = flat - delta
+
+            sim_t0 = t_cum
+            if res.wall_clock_s is not None:
+                t_cum += res.wall_clock_s       # packet-simulated round time
+            else:
+                t_cum += round_wall_clock(
+                    packets_per_client=load.packets_per_client,
+                    download_packets=n_packets(traffic.total_bytes),
+                    rates=rates, profile=flcfg.switch,
+                    local_train_s=flcfg.local_train_s, aligned=load.aligned)
+            # uploads come from the clients that sent this round (the
+            # packet transport reports exact bytes: dropped voters still
+            # spent phase 1); the broadcast reaches all N clients.
+            up_bytes = (res.upload_bytes if res.upload_bytes is not None
+                        else traffic.total_bytes * res.n_active)
+            mb_cum += up_bytes / 1e6 + traffic.total_bytes * n / 1e6
+            with probe.span("eval", round=t):
+                model.load_flat(flat)
+                acc_t = accuracy(model, xt, yt)
+            rec = hist.append_round(acc=acc_t, wall_clock=t_cum,
+                                    traffic_mb=mb_cum,
+                                    loss=float(losses.mean()))
+            if probe.enabled:
+                _emit_round(probe, t, rec, res, sim_t0, t_cum, up_bytes,
+                            traffic.total_bytes * n)
+            if flcfg.ckpt_path and (t % flcfg.ckpt_every == 0
+                                    or t == flcfg.rounds):
+                with probe.span("ckpt", round=t):
+                    save_run_state(flcfg.ckpt_path, flat=flat,
+                                   e_stack=e_stack, key=key,
+                                   agg_state=agg_state, round_idx=t,
+                                   t_cum=t_cum, mb_cum=mb_cum, history=hist)
     return hist
+
+
+def _emit_round(probe, t: int, rec: RoundRecord, res, sim_t0: float,
+                sim_t1: float, up_bytes: float, bcast_bytes: float) -> None:
+    """Feed one completed round to an enabled probe.
+
+    Only called when ``probe.enabled``: everything here reads values the
+    round already produced (RoundRecord, RoundResult stats), so disabled
+    runs skip even the dict construction.
+    """
+    payload = dict(res.to_metrics())
+    payload.update(acc=rec.acc, loss=rec.loss, upload_bytes=up_bytes,
+                   broadcast_bytes=bcast_bytes,
+                   wall_clock_s=sim_t1 - sim_t0)
+    probe.metrics(payload, round=t)
+    # the simulated round timeline: phase 1 (voting) then phase 2
+    # (aggregation), on the cumulative sim clock
+    st = res.stats or {}
+    p1, p2 = st.get("phase1_s"), st.get("phase2_s")
+    if p1 is not None:
+        probe.sim_phase("phase1-vote", sim_t0, sim_t0 + float(p1), round=t)
+        if p2 is not None:
+            probe.sim_phase("phase2-aggregate", sim_t0 + float(p1),
+                            sim_t0 + float(p1) + float(p2), round=t)
+    else:
+        probe.sim_phase("sim-round", sim_t0, sim_t1, round=t)

@@ -24,6 +24,7 @@ import torch
 
 from repro.core.fediac import FediACConfig as JCfg
 from repro.netsim import PacketTransport as JPT
+from repro.robust import ADVERSARY_DYN_FIELDS as J_ADV_DYN_FIELDS
 from repro.robust import AdversaryConfig as JAdv
 from repro.robust import adversary_packet_dyn as j_adv_dyn
 from repro.robust import make_robust_packet_core as j_robust_core
@@ -265,6 +266,26 @@ def test_robust_transport_zero_knob_matches_plain(u_stack):
 _CLEAN_KW = dict(loss=0.0, participation=1.0, seed=0)
 
 
+#: the reference's jitted robust cores by their compiled structure
+_J_CORES = {}
+
+
+def _j_robust_core(cfg_kw, net_kw):
+    """The reference's jitted robust core for ``(cfg_kw, net_kw)``, shared
+    by every net that differs only in the per-scenario knobs the core takes
+    through ``dyn`` (``ADVERSARY_DYN_FIELDS``) and the seed (its key is an
+    argument): one compiled program for them all, as the reference's fleet
+    runs such cells."""
+    net = JAdv(**net_kw)
+    structure = {f.name: getattr(net, f.name)
+                 for f in dataclasses.fields(net)
+                 if f.name not in J_ADV_DYN_FIELDS and f.name != "seed"}
+    key = (tuple(sorted(cfg_kw.items())), tuple(sorted(structure.items())))
+    if key not in _J_CORES:
+        _J_CORES[key] = jax.jit(j_robust_core(JCfg(**cfg_kw), net, N))
+    return _J_CORES[key]
+
+
 def _run_rounds(cfg_kw, net_kw, rounds=1):
     """Drive the port's robust core and the jitted reference's for
     ``rounds``, threading the state, each round held bitwise to the
@@ -273,7 +294,7 @@ def _run_rounds(cfg_kw, net_kw, rounds=1):
     cfg, net = FediACConfig(**cfg_kw), AdversaryConfig(**net_kw)
     core = make_robust_packet_core(cfg, net, N)
     dyn = adversary_packet_dyn(cfg, net, N, 1.0, 1e-5, device="cpu")
-    jcore = jax.jit(j_robust_core(JCfg(**cfg_kw), JAdv(**net_kw), N))
+    jcore = _j_robust_core(cfg_kw, net_kw)
     jdyn = j_adv_dyn(JCfg(**cfg_kw), JAdv(**net_kw), N, 1.0, 1e-5)
     u, rates = _probe_inputs()
     state = init_reputation_state(N, device="cpu")
@@ -506,17 +527,20 @@ def _port_grid_cfg(cell):
 def grid_seed_1():
     """Each cell's (reference, port) FL history at net seed 1, and the
     test set's size."""
+    from repro.sweep import run_sweep
     from repro.sweep.grids import attack_grid
-    from repro.training.fl_loop import run_federated as j_run_federated
     cells = {c.name: dataclasses.replace(c, net_seed=1)
              for c in attack_grid() if c.name in GRID_CELLS}
     c0 = cells["attack-clean"]
-    j_clients, j_test = c0.make_task(0)
     data = classification(n=c0.data_n, dim=c0.data_dim,
                           n_classes=c0.data_classes, seed=0)
     train, test = data.test_split(c0.test_frac)
     clients = partition_dirichlet(train, c0.n_clients, beta=c0.beta, seed=0)
-    hist = {name: (j_run_federated(j_clients, j_test, c.to_flconfig(0)),
+    # the three cells share one compiled structure, so the reference's
+    # fleet runs them as one batch (its histories are its sequential
+    # runs', bit for bit)
+    ref = run_sweep(list(cells.values()), (0,))
+    hist = {name: (ref.history(c, 0),
                    fl_loop.run_federated(clients, test, _port_grid_cfg(c),
                                          device="cpu"))
             for name, c in cells.items()}

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, and
-a round, the packet round (plain, chaos and Byzantine-robust) and the FL
-loop against the same on the CPU.  Every test needs an
+a round, the packet round (plain, chaos, Byzantine-robust and async) and
+the FL loop against the same on the CPU, a probe leaving the FL run
+bitwise.  Every test needs an
 NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the reference package, so it also runs
@@ -380,6 +381,76 @@ def test_chaos_engines_on_card(cuda_device):
         want = PacketTransport("fediac", {"cfg": mono},
                                net=net).round(u, None, key, 2)
         _packet_same(got, want, rtol=0.0)
+
+
+#: the async close under PACKET_NET-like impairments: half the clients
+#: straggling 16x, a quorum of half, poly staleness, then the same with a
+#: deadline and the bounce policy
+_ASYNC = dict(loss=0.05, participation=0.9, straggler_frac=0.5,
+              straggler_slowdown=16.0, quorum_frac=0.5, staleness_mode="poly",
+              staleness_gamma=1.0, seed=2)
+
+
+@pytest.mark.parametrize("extra,vote_chunk", [
+    ({}, 1), ({}, 4), (dict(round_deadline_s=0.02, late_policy="bounce"), 1)])
+def test_async_round_on_card_equals_cpu(cuda_device, extra, vote_chunk):
+    """Two async packet rounds on the card against the CPU, kernels on (B1
+    at vote_chunk 1, B2 at 4), the second folding the first's carry: the
+    carry, delta, residuals, the async statistics and the clock bitwise
+    (the mean wait within 1e-6)."""
+    from repro_torch.netsim import AsyncConfig, PacketTransport
+    rng = np.random.default_rng(12)
+    u = torch.from_numpy((rng.standard_normal((8, 40_000)) ** 3).astype(
+        np.float32))
+    cfg = FediACConfig(vote_chunk=vote_chunk,
+                       engine=EngineSpec(use_pallas=True))
+    tp = PacketTransport("fediac", {"cfg": cfg},
+                         net=AsyncConfig(**_ASYNC, **extra),
+                         local_train_s=0.01)
+    s_card = s_cpu = None
+    late = 0
+    for rnd in range(2):
+        before = (gather_quant.gather_quant.launches,
+                  stoch_quant.stoch_quant.launches)
+        on_card = tp.round(u.to(cuda_device), s_card,
+                           prng.PRNGKey(rnd, device=cuda_device), rnd)
+        assert (gather_quant.gather_quant.launches - before[0],
+                stoch_quant.stoch_quant.launches - before[1]) == (
+            int(vote_chunk == 1), int(vote_chunk > 1))
+        on_cpu = tp.round(u, s_cpu, prng.PRNGKey(rnd, device="cpu"), rnd)
+        _packet_same(on_card, on_cpu)
+        for k in ("pending", "pending_w", "pending_n"):
+            assert _same(on_card.state[k], on_cpu.state[k])
+        s_card, s_cpu = on_card.state, on_cpu.state
+        late += on_cpu.stats["late_folded"] + on_cpu.stats["late_bounced"]
+    assert late > 0
+
+
+def test_probe_bitwise_on_card(cuda_device, tmp_path):
+    """The async FL run on the card with a recording probe is bitwise the
+    run without one; the trace validates and the profiler read device time
+    for the round cores."""
+    from repro_torch.netsim import AsyncConfig
+    from repro_torch.obs import RecordingProbe, load_trace, validate_records
+    data = classification(n=1200, dim=16, seed=0)
+    train, test = data.test_split(0.2)
+    clients = partition_dirichlet(train, 4, beta=0.5, seed=0)
+    cfg = fl_loop.FLConfig(n_clients=4, rounds=3, local_steps=2, batch=16,
+                           transport="packet", net=AsyncConfig(**_ASYNC),
+                           local_train_s=0.01,
+                           engine=EngineSpec(use_pallas=True))
+    bare = fl_loop.run_federated(clients, test, cfg, hidden=(32, 16))
+    path = str(tmp_path / "run.jsonl")
+    with RecordingProbe(path, profiler=True) as probe:
+        probed = fl_loop.run_federated(clients, test, cfg, hidden=(32, 16),
+                                       probe=probe)
+    assert probed == bare
+    assert probed.wall_clock == bare.wall_clock
+    recs = load_trace(path)
+    assert validate_records(recs) == []
+    prof = recs[-1]["metrics"]["__profile__"]
+    assert prof["packet_core[n=4]"]["calls"] == 3
+    assert prof["packet_core[n=4]"]["device_s"] > 0
 
 
 def _close(got, want, dtype):

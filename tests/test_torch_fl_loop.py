@@ -133,12 +133,17 @@ def test_wrap_transport_watches_and_feeds_rounds(task):
 
 
 def test_unported_options_raise(task):
-    """What still raises: probes (A10).  Checkpointing, the five baselines
-    and the packet transport run (tests/test_torch_ckpt.py,
-    tests/test_torch_baselines.py, tests/test_torch_netsim_fl.py)."""
+    """Nothing of the FL loop raises "not ported" any more: the packet
+    transport runs, and so do probes, which leave the history bitwise
+    (tests/test_torch_obs.py holds them further)."""
+    from repro_torch.obs import RecordingProbe
     clients, test = task
     cfg = fl_loop.FLConfig(n_clients=4, rounds=1, transport="packet")
     assert len(fl_loop.run_federated(clients, test, cfg, device="cpu")) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        fl_loop.run_federated(clients, test, fl_loop.FLConfig(n_clients=4),
-                              device="cpu", probe=object())
+    cfg = fl_loop.FLConfig(n_clients=4, rounds=2)
+    probe = RecordingProbe()
+    probed = fl_loop.run_federated(clients, test, cfg, device="cpu",
+                                   probe=probe)
+    assert probed == fl_loop.run_federated(clients, test, cfg, device="cpu")
+    assert [r["round"] for r in probe.tracer.records
+            if r.get("name") == "round"] == [1, 2]

@@ -73,6 +73,11 @@ def test_source_imports_neither_jax_nor_reference(path):
         assert top not in ("jax", "jaxlib", "repro"), (path, line)
 
 
+#: port modules whose reference counterpart has another name: the
+#: profiler of eager torch entry points stands where the jit profiler stood
+RENAMED = {Path("obs/torchprof.py"): Path("obs/jaxprof.py")}
+
+
 def test_module_layout_mirrors_reference():
     ref = SRC.parent / "repro"
     for path in SRC.rglob("*.py"):
@@ -81,7 +86,8 @@ def test_module_layout_mirrors_reference():
                         "collectives.py", "pytree.py") \
                 or rel == Path("__init__.py"):
             continue   # the port's own helpers and package root
-        assert (ref / rel).exists(), f"{rel} has no reference counterpart"
+        assert (ref / RENAMED.get(rel, rel)).exists(), \
+            f"{rel} has no reference counterpart"
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
