@@ -10,8 +10,9 @@ Phases, each of which raises (and exits non-zero) on failure:
 1. card: name and power limit, as ``nvidia-smi`` reports them;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``quant.cu``, ``votes.cu`` and ``attention.cu``, one ``nvcc`` each, in
-   parallel), and count the HGMMA (tensor-core) instructions in the
-   attention library's SASS (``cuobjdump``), which must be more than 0;
+   parallel), count the HGMMA (tensor-core) instructions in the
+   attention library's SASS (``cuobjdump``), which must be more than 0,
+   and read the registers and spills of B6's float32 instances;
 3. kernel parity: each kernel against its plain-torch version on the card,
    at the main paths' shapes and at ragged / edge cases: bitwise for the
    six FediAC kernels; for B6 ``flash_attention`` within a tolerance
@@ -140,7 +141,7 @@ Phases, each of which raises (and exits non-zero) on failure:
    B6 against its plain version (within one bfloat16 ulp of the output
    plus 2e-3) and against the model's plain ``_blockwise_attention``
    (2e-2) at layer 0's q, k, v; the 2-layer model at S = 4,096 in float32
-   on the card (B6's float32 SIMT instance, once per layer, held to its
+   on the card (B6's float32 FFMA instance, once per layer, held to its
    plain version at layer 0) against the CPU, and the same in bfloat16
    (B6's bf16 instance) within 2e-2 of the largest logit;
    ``ServingEngine`` answering 4 requests on 2 slots, each request's
@@ -207,7 +208,12 @@ FLASH_CASES = ((1, 1024, 1024, 4, 2, 64, 64, True, 0),
                (1, 384, 384, 4, 4, 192, 128, True, 0),
                (1, 300, 700, 4, 2, 256, 256, False, 64),
                (1, 700, 300, 4, 2, 64, 64, False, 64),
-               (1, 333, 333, 4, 2, 256, 256, True, 0))
+               (1, 333, 333, 4, 2, 256, 256, True, 0),
+               (1, 129, 191, 4, 2, 128, 128, True, 0),
+               (1, 191, 129, 4, 4, 96, 96, False, 0),
+               (1, 4097, 4097, 8, 1, 128, 128, True, 0),
+               (1, 640, 640, 4, 2, 128, 128, True, 37),
+               (1, 1100, 300, 4, 2, 128, 128, False, 100))
 #: B6 is held to a tolerance, not bitwise: float32 3e-5 (the reference
 #: test's), bfloat16 2e-2 (test_flash_bf16's), as |a - b| <= tol + tol |b|
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
@@ -381,6 +387,37 @@ def hgmma_count() -> int:
     log(f"[build] HGMMA instructions in libattention's SASS: {n}")
     check(n > 0, "the attention library has no HGMMA instruction")
     return n
+
+
+def simt_resources() -> dict:
+    """Registers, stack and local (spilled) bytes a thread of each float32
+    instance of B6 (``flash_fwd_simt<rows, value columns / 64, ring
+    slots>``) uses, from ``cuobjdump -res-usage`` of the built library."""
+    import os
+    import re
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-res-usage",
+                           str(build._lib_path("attention"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        fn = re.search(
+            r"Function\s+\S*flash_fwd_simtILi(\d+)ELi(\d+)ELi(\d+)E\S*:", line)
+        if fn:
+            name = "<{}, {}, {}>".format(*fn.groups())
+            continue
+        use = re.search(
+            r"REG:(\d+)\s+STACK:(\d+)\s+SHARED:\d+\s+LOCAL:(\d+)", line)
+        if name and use:
+            out[name] = dict(zip(("registers", "stack", "local"),
+                                 map(int, use.groups())))
+            name = None
+    log(f"[build] flash_fwd_simt resources per thread: {out}")
+    check(len(out) == 6, f"expected 6 float32 B6 instances, read {out}")
+    return out
 
 
 def _inputs(n, d, density, seed):
@@ -3391,7 +3428,7 @@ def phase_serve() -> dict:
           and dtypes == ["float32"] * CHECK_LAYERS,
           "the card check prefill did not launch B6's float32 instance once "
           f"per layer ({dtypes})")
-    # B6's float32 (SIMT) instance at its layer 0 against its plain version
+    # B6's float32 (FFMA) instance at its layer 0 against its plain version
     ok, out["check_layer_err_vs_plain"] = flash_close(
         fa.flash_attention(q32, k32, v32, **kw32),
         fa.flash_attention_plain(q32, k32, v32, **kw32))
@@ -3523,7 +3560,7 @@ def phase_serve() -> dict:
     out["prefill_idle_share"] = 1.0 - busy / out["prefill_ms"]
     out["prefill_top_kernels"] = [(n[:60], ms, c) for n, ms, c in rows[:5]]
     # B6's instances: bf16 (tensor cores) at the 32k layer, the main path;
-    # float32 (SIMT) at the check prefill's layer
+    # float32 (FFMA over a TMA ring) at the check prefill's layer
     out["b6"] = {
         "bfloat16": time_b6(q, k, v, kw, BF16_OPS_PER_S, out["launches"],
                             iters=3, graph=dict(launches=5, replays=2)),
@@ -3595,6 +3632,7 @@ def main() -> int:
     card = phase_card()
     build_s = phase_build()
     hgmma = hgmma_count()
+    simt_res = simt_resources()
     parity_err = phase_parity()
     parity_err.update(phase_wire_parity())
     flash_err = phase_flash_parity()
@@ -3721,12 +3759,14 @@ def main() -> int:
         "max_abs_err_small_shapes": flash_err,
         "tolerance_small_shapes": FLASH_TOL,
         "hgmma_in_sass": hgmma,
+        "float32_resources": simt_res,
         **{k: b6["bfloat16"][k] for k in instance_keys if k != "launches"},
         "instances": [
             {"instance": "bfloat16, wgmma + TMA (tensor cores)",
              "on": "the 32k prefill", **{k: b6["bfloat16"][k]
                                          for k in instance_keys}},
-            {"instance": "float32, SIMT", "on": "the check prefill",
+            {"instance": "float32, FFMA (SIMT) over a TMA ring",
+             "on": "the check prefill",
              "max_abs_err": serve["check_layer_err_vs_plain"],
              **{k: b6["float32"][k] for k in instance_keys}}]})
     serve = {k: v for k, v in serve.items() if k != "b6"}

@@ -62,15 +62,44 @@
 //     through cudaGetDriverEntryPoint, so no -lcuda) and passed as
 //     __grid_constant__ parameters; nothing is set while a graph captures.
 //
-// float32: flash_fwd_simt, on the float32 SIMT units (67 TFLOP/s), 131 ms
-// at the 32k shape; no path of the bf16 prefill reaches it.
-//   * one block of 256 threads per (batch, query head, 64-row query tile);
-//     the q tile and one 64-key K and V tile at a time sit in shared memory;
-//     the probability tile reuses the K tile's space;
-//   * each thread owns rows ty + 16 i (i < 4): scores for keys tx + 16 j
-//     (j < 4) and the accumulator for value columns 64 c + 4 tx + e;
-//   * inner products read shared memory as float4; the tile skipping and
-//     the longest-first order are those of the bf16 kernel.
+// float32: flash_fwd_simt, exact float32 on the SIMT units: every product
+// is one FFMA (no TF32, no bf16 split), so its bound is the 67 TFLOP/s
+// FFMA rate (1.026 ms at the float32 check prefill's layer, q [1, 4096,
+// 16, 128], k/v [1, 4096, 8, 128], causal).  Shared-memory reads, not the
+// FFMA rate, held the first tiling back: timed by phase, a warp's 16-byte
+// shared load behaves as if it took 4 of the SM's shared-memory cycles
+// even when its lanes share addresses, so a thread must do 4 FFMAs per
+// float it reads to keep the FFMA units busy.
+//   * One block of 256 threads per (query head, query tile, batch), heads
+//     fastest and query tiles longest first, as the bf16 kernel.  Tiles of
+//     128 query rows and a ring of 3 slots where D <= 128 and Dv <= 128, 64
+//     rows and 2 slots above (D, Dv up to 256).  KV tiles of 64 keys.
+//   * The ring holds K and V tiles in turn (K0, V0, K1, ...).  Thread 0
+//     fills a slot by TMA, 32-column boxes with the 128-byte swizzle,
+//     counted on the slot's mbarrier, so no warp stalls on the copies;
+//     while the q.k of tile it runs, V it and K it + 1 are in flight.  An
+//     operand TMA cannot read (a last stride other than 1, a stride or base
+//     not 16-byte aligned) is copied into the same swizzled tiles one 4-byte
+//     cp.async per element, each thread arriving on the mbarrier when its
+//     copies land.  Rows past S or T and columns past D are zeros.  One
+//     barrier per slot consumed hands the slot back.
+//   * Scores: lanes pair up over the two depth halves (chunks 0-3 and 4-7
+//     of each 32-column box); each thread holds 8 rows x 8 keys of its half
+//     (8 q and 8 k float4 per depth chunk, 256 FFMAs: 4 per float read) and
+//     swaps halves with its partner (one shuffle per kept score): 8
+//     rows x 4 keys.  A warp holds 16 rows x 64 keys, so row maxima and sums
+//     stay in 16 lanes and p in the warp (pitch 80: conflict-free stores).
+//   * Softmax: 2^x on the special-function unit; a tile that every row of
+//     the block sees whole keeps its raw scores and folds scale * log2e
+//     into one FFMA per score; others are scaled and masked first.
+//   * p.v: each thread holds the same 8 rows x 8 value columns (64 c +
+//     4 cg + e) and per 4 keys reads 8 p and 8 v float4 for 256 FFMAs; the
+//     swizzle keeps a warp's k, q and v reads free of bank conflicts.
+//   * 254 registers a thread, no spills; 204,832 bytes of shared memory a
+//     block at D = Dv = 128, so one block (8 warps) per SM (chip_smoke.py
+//     prints the registers and spills of every instance).
+//   * The tile skipping and the visit of every tile when a row sees no key
+//     are those of the bf16 kernel.
 //
 // Plain C entry point, loaded with ctypes; it returns cudaGetLastError()
 // right after the launch, or a cudaError_t for operands it cannot take.
@@ -499,11 +528,12 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-d map over a (B, R, Hx, Dx) bf16 tensor with element strides st
-// (st[3] == 1): boxes of 64 columns x 1 head x `rows` rows x 1 batch,
-// 128-byte swizzled, zeros past every edge.
-bool encode_map(CUtensorMap* map, const void* ptr, const int64_t* shape,
-                const int64_t* st, int rows) {
+// A 4-d map over a (B, R, Hx, Dx) tensor of `esize`-byte elements with
+// element strides st (st[3] == 1): boxes of `cols` columns x 1 head x
+// `rows` rows x 1 batch, zeros past every edge.
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
+                int cols, CUtensorMapSwizzle swizzle, const void* ptr,
+                const int64_t* shape, const int64_t* st, int rows) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr || st[3] != 1 ||
       reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
@@ -512,14 +542,14 @@ bool encode_map(CUtensorMap* map, const void* ptr, const int64_t* shape,
                               (cuuint64_t)shape[1], (cuuint64_t)shape[0]};
   cuuint64_t gstride[3];
   for (int i = 0; i < 3; ++i) {
-    if (st[2 - i] <= 0 || (st[2 - i] * 2) % 16 != 0) return false;
-    gstride[i] = (cuuint64_t)st[2 - i] * 2;
+    if (st[2 - i] <= 0 || (st[2 - i] * esize) % 16 != 0) return false;
+    gstride[i] = (cuuint64_t)st[2 - i] * esize;
   }
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t estride[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+  return fn(map, type, 4, const_cast<void*>(ptr),
             gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -533,9 +563,11 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const int64_t k_shape[4] = {B, T, Hk, dims[5]};
   const int64_t v_shape[4] = {B, T, Hk, dims[6]};
   CUtensorMap tq, tk, tv;
-  if (!encode_map(&tq, q, q_shape, strides, kBM) ||
-      !encode_map(&tk, k, k_shape, strides + 4, BN) ||
-      !encode_map(&tv, v, v_shape, strides + 8, BN))
+  constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapSwizzle kSw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!encode_map(&tq, kBf16, 2, 64, kSw, q, q_shape, strides, kBM) ||
+      !encode_map(&tk, kBf16, 2, 64, kSw, k, k_shape, strides + 4, BN) ||
+      !encode_map(&tv, kBf16, 2, 64, kSw, v, v_shape, strides + 8, BN))
     return (int)cudaErrorInvalidValue;
   auto kernel = flash_fwd_wgmma<DP, DVP, BN>;
   constexpr size_t smem = tc_smem_bytes<DP, DVP, BN>();
@@ -558,19 +590,22 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// float32: SIMT
+// float32: register-tiled FFMA over a K/V ring filled by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64;               // query rows per block
-constexpr int kBK = 64;               // keys per KV tile
-constexpr int kThreads = 256;         // 16 x 16: tx = key / column, ty = row
-constexpr int kPStride = kBK + 16;    // probability tile pitch (floats)
+constexpr int kBK = 64;               // keys per K / V tile
+constexpr int kThreads = 256;
+constexpr int kPPitch = kBK + 16;     // probability tile pitch (floats)
+constexpr int kBox = 32;              // floats per 128-byte box row
+constexpr size_t kSmemMax = 232448;   // what one block may use on sm_90
 
 struct Params {
   int64_t S, T, H, Hk;
   int64_t qs[4], ks[4], vs[4];        // element strides
   int D, Dv;
-  int dp;                             // q / k tile pitch in floats
+  int nbk, nbv;                       // 32-column boxes of q / k and of v
+  int slot;                           // floats per ring slot
+  int tma_q, tma_kv;                  // q, and k and v, copied by TMA
   int causal, window;
   float scale;
 };
@@ -579,55 +614,122 @@ __device__ __forceinline__ float lane(const float4& v, int u) {
   return u == 0 ? v.x : (u == 1 ? v.y : (u == 2 ? v.z : v.w));
 }
 
-// Copies rows [r0, r0 + 64) of a (rows, cols) slice with element strides
-// (row_stride, col_stride) into a float tile of pitch `pitch`, zero-filling
-// rows >= n_rows and columns in [cols, pad_cols).  One warp per row at a
-// time, lanes on consecutive columns: coalesced reads, conflict-free writes.
-__device__ __forceinline__ void load_tile(float* dst, int pitch,
-                                          const float* __restrict__ src,
-                                          int64_t row_stride,
-                                          int64_t col_stride, int64_t r0,
-                                          int64_t n_rows, int cols,
-                                          int pad_cols) {
-  const int warp = threadIdx.x >> 5, ln = threadIdx.x & 31;
-  for (int r = warp; r < 64; r += kThreads / 32) {
-    const bool row_ok = r0 + r < n_rows;
-    const float* srow = src + (r0 + r) * row_stride;
-    for (int c = ln; c < pad_cols; c += 32)
-      dst[r * pitch + c] = (row_ok && c < cols) ? srow[c * col_stride] : 0.f;
-  }
+// Tiles live as TMA writes them with the 128-byte swizzle: 32-column boxes
+// of `rows` rows of 128 bytes, the 16-byte chunk c of row r at chunk
+// c ^ (r % 8).  The float index of element (r, col):
+__device__ __forceinline__ int sw_index(int rows, int r, int col) {
+  return (col >> 5) * rows * kBox + r * kBox +
+         ((((col >> 2) & 7) ^ (r & 7)) << 2) + (col & 3);
 }
 
-template <int DVC>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
+// Rows [row0, row0 + ROWS) of operand x (batch b, head hx) into `dst`:
+// by TMA (thread 0 announces the bytes on `bar` and issues one copy per
+// box) or, for an operand TMA cannot read (a last stride other than 1, or
+// strides or base not 16-byte aligned), one 4-byte cp.async per element,
+// zeros past `n_rows` and `cols`, each thread arriving on `bar` once its
+// own copies have landed.  So `bar` counts one arrival (with the bytes) for
+// a TMA fill and kThreads for an element fill.
+template <int ROWS>
+__device__ __forceinline__ void fill_tile(float* dst, uint64_t* bar, bool tma,
+                                          const CUtensorMap* map,
+                                          const float* __restrict__ x,
+                                          const int64_t* st, int64_t b,
+                                          int64_t hx, int64_t row0,
+                                          int64_t n_rows, int cols, int nb) {
+  if (tma) {
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(bar, nb * ROWS * kBox * 4);
+      for (int bx = 0; bx < nb; ++bx)
+        hopper::tma_load_4d(dst + bx * ROWS * kBox, map, bar, kBox * bx,
+                            (int)hx, (int)row0, (int)b);
+    }
+    return;
+  }
+  const float* src = x + b * st[0] + hx * st[2] + row0 * st[1];
+  const int warp = threadIdx.x >> 5, ln = threadIdx.x & 31;
+  for (int r = warp; r < ROWS; r += kThreads / 32)
+    for (int col = ln; col < nb * kBox; col += 32) {
+      const bool ok = r < n_rows && col < cols;
+      hopper::cp_async4(dst + sw_index(ROWS, r, col),
+                        ok ? src + r * st[1] + col * st[3] : x, ok ? 4 : 0);
+    }
+  hopper::cp_async_mbar_arrive(bar);
+}
+
+template <int BQ, int DVC, int NS>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_simt(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o, Params p) {
-  constexpr int DVP = 64 * DVC;       // value columns held, Dv <= DVP
-  extern __shared__ float4 smem4[];
-  const int dp = p.dp;
-  const int d4 = (p.D + 3) & ~3;
-  float* qs = reinterpret_cast<float*>(smem4);          // [kBQ][dp]
-  float* ks = qs + kBQ * dp;                            // [kBK][dp]
-  float* ps = ks;                                       // [kBQ][kPStride]
-  const int k_floats = kBK * dp > kBQ * kPStride ? kBK * dp : kBQ * kPStride;
-  float* vs = ks + k_floats;                            // [kBK][DVP]
+  constexpr int R = BQ / 16;          // rows per thread
+  // no static shared memory, so the dynamic block starts 1024-byte aligned
+  extern __shared__ __align__(1024) float smem_f[];
+  float* qs = smem_f;                            // [nbk][BQ][kBox], swizzled
+  float* ring = qs + BQ * kBox * p.nbk;          // [NS][slot]: K, V, K, ...
+  float* ps = ring + NS * p.slot;                // [BQ][kPPitch]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ps + BQ * kPPitch);
+  uint64_t* full = q_full + 1;                   // [NS]
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int64_t n_qt = (p.S + kBQ - 1) / kBQ;
-  const int64_t q0 = (n_qt - 1 - blockIdx.x) * kBQ;
-  const int64_t h = blockIdx.y, b = blockIdx.z;
-  const int64_t hk = h / (p.H / p.Hk);
+  // Lanes: bit 0 the depth half dh, bits 1-3 the key group kg, bit 4 with
+  // the warp the row group rg; a thread owns rows rg + 16 i (i < R).
+  // Scores: over its depth half (chunks 4 dh .. 4 dh + 3 of each 32-column
+  // box) for keys kg + 8 j (j < 8); then, summed with its partner's half,
+  // for keys kg + 8 (2 m + dh) (m < 4): a row's 64 keys lie in 16 lanes of
+  // one warp.  Output: columns 64 c + 4 cg + e (cg = lane % 16) of the same
+  // rows, so p stays in the warp and each row's statistics in the thread.
+  const int tid = threadIdx.x, ln = tid & 31;
+  const int dh = ln & 1, kg = (ln >> 1) & 7, cg = ln & 15;
+  const int rg = 2 * (tid >> 5) + (ln >> 4);
 
-  load_tile(qs, dp, q + b * p.qs[0] + h * p.qs[2], p.qs[1], p.qs[3], q0, p.S,
-            p.D, d4);
-
-  const int64_t q_last = (q0 + kBQ < p.S ? q0 + kBQ : p.S) - 1;
+  const int64_t H = p.H, n_qt = (p.S + BQ - 1) / BQ;
+  const int h = (int)(blockIdx.x % H);
+  const int64_t q0 = (n_qt - 1 - blockIdx.x / H) * BQ;   // longest first
+  const int64_t b = blockIdx.y;
+  const int64_t hk = h / (H / p.Hk);
+  const int64_t q_last = (q0 + BQ < p.S ? q0 + BQ : p.S) - 1;
   int64_t lo, hi;
   kv_range(q0, q_last, p.T, p.causal, p.window, &lo, &hi);
+  const int64_t first = lo / kBK;
+  const int n_tiles = (int)((hi + kBK - 1) / kBK - first);
+  const int n_half = 2 * n_tiles;     // K tile it is half 2 it, V tile 2 it + 1
 
-  float m[4], l[4], acc[4][DVC][4];
+  auto fill_half = [&](int hh) {
+    float* dst = ring + (hh % NS) * p.slot;
+    const int64_t k0 = (first + hh / 2) * kBK;
+    if (hh & 1)
+      fill_tile<kBK>(dst, &full[hh % NS], p.tma_kv, &tm_v, v, p.vs, b, hk, k0,
+                     p.T - k0, p.Dv, p.nbv);
+    else
+      fill_tile<kBK>(dst, &full[hh % NS], p.tma_kv, &tm_k, k, p.ks, b, hk, k0,
+                     p.T - k0, p.D, p.nbk);
+  };
+  // Half hh is consumed once its slot's barrier has completed the phase of
+  // this fill and every thread has passed __syncthreads, which also shows
+  // that half hh - 1 is consumed: its slot takes half hh + NS - 1.
+  auto advance = [&](int hh) {
+    hopper::mbar_wait(&full[hh % NS], (hh / NS) & 1);
+    __syncthreads();
+    if (hh + NS - 1 < n_half) fill_half(hh + NS - 1);
+  };
+
+  if (tid == 0) {
+    // the swizzled boxes need a 1024-byte aligned base
+    if (hopper::smem_addr(smem_f) % 1024 != 0) __trap();
+    hopper::mbar_init(q_full, p.tma_q ? 1 : kThreads);
+    for (int s = 0; s < NS; ++s)
+      hopper::mbar_init(&full[s], p.tma_kv ? 1 : kThreads);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  fill_tile<BQ>(qs, q_full, p.tma_q, &tm_q, q, p.qs, b, h, q0, p.S - q0, p.D,
+                p.nbk);
+  for (int hh = 0; hh < NS - 1 && hh < n_half; ++hh) fill_half(hh);
+
+  float m[R], l[R], acc[R][DVC][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
@@ -636,104 +738,144 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
   }
 
-  const float* kb = k + b * p.ks[0] + hk * p.ks[2];
-  const float* vb = v + b * p.vs[0] + hk * p.vs[2];
-  for (int64_t k0 = (lo / kBK) * kBK; k0 < hi; k0 += kBK) {
-    __syncthreads();   // the previous tile's p.v is done with ps and vs
-    load_tile(ks, dp, kb, p.ks[1], p.ks[3], k0, p.T, p.D, d4);
-    load_tile(vs, DVP, vb, p.vs[1], p.vs[3], k0, p.T, p.Dv, DVP);
-    __syncthreads();
+  const float sl2 = p.scale * kLog2e;
+  float* prow = ps + rg * kPPitch;
+  hopper::mbar_wait(q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int64_t k0 = (first + it) * kBK;
+    advance(2 * it);
+    const float* kt = ring + ((2 * it) % NS) * p.slot;
 
-    // scores: rows ty + 16 i, keys tx + 16 j
-    float s[4][4];
+    // partial s = q . k^T over this thread's depth half: per depth chunk,
+    // R + 8 float4 reads for 32 R FFMAs.  Keys kg + 8 j and rows rg + 16 i
+    // share their swizzle (kg, rg % 8), so one address serves all j (i).
+    float s[R][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < d4; d += 4) {
-      float4 qv[4], kv[4];
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    {
+      const float* kb = kt + kg * kBox;
+      const float* qb = qs + rg * kBox;
+      for (int bx = 0; bx < p.nbk; ++bx, kb += kBK * kBox, qb += BQ * kBox) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&qs[(ty + 16 * i) * dp + d]);
+        for (int t = 0; t < 4; ++t) {
+          const int cs = 4 * dh + t;
+          const float* kc = kb + ((cs ^ kg) << 2);
+          const float* qc = qb + ((cs ^ (rg & 7)) << 2);
+          float4 kf[8];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&ks[(tx + 16 * j) * dp + d]);
+          for (int j = 0; j < 8; ++j)
+            kf[j] = *reinterpret_cast<const float4*>(kc + 8 * j * kBox);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < R; ++i) {
+            const float4 qf =
+                *reinterpret_cast<const float4*>(qc + 16 * i * kBox);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+            for (int j = 0; j < 8; ++j) {
+              s[i][j] = fmaf(qf.x, kf[j].x, s[i][j]);
+              s[i][j] = fmaf(qf.y, kf[j].y, s[i][j]);
+              s[i][j] = fmaf(qf.z, kf[j].z, s[i][j]);
+              s[i][j] = fmaf(qf.w, kf[j].w, s[i][j]);
+            }
+          }
         }
+      }
     }
+    // the two depth halves: keep keys j = 2 m + dh, send the others
+    float x[R][4];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int mm = 0; mm < 4; ++mm) {
+        const float keep = dh ? s[i][2 * mm + 1] : s[i][2 * mm];
+        const float send = dh ? s[i][2 * mm] : s[i][2 * mm + 1];
+        x[i][mm] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
+      }
 
-    // mask, then the online softmax of each row
+    // The online softmax of each row.  A tile every row sees whole keeps
+    // its raw scores: the row maximum is scaled once (rounding is monotone)
+    // and p = 2^(s scale log2e - m log2e) is one FFMA and one ex2 a score.
+    // Otherwise scores are scaled and masked first, and p = 2^((x - m)
+    // log2e), which is 1 where x and m are both the -1e30 sentinel.
+    const bool no_mask =
+        k0 + kBK <= p.T && (!p.causal || k0 + kBK - 1 <= q0) &&
+        (p.window == 0 || k0 > q0 + BQ - 1 - p.window);
+    if (!no_mask) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t qpos = q0 + ty + 16 * i;
-      float mx = -INFINITY;
+      for (int i = 0; i < R; ++i) {
+        const int64_t qpos = q0 + rg + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int64_t kpos = k0 + tx + 16 * j;
-        float x = -INFINITY;          // past the last key: no entry at all
-        if (kpos < p.T) {
-          x = s[i][j] * p.scale;
-          bool ok = true;
-          if (p.causal) ok = kpos <= qpos;
-          if (p.window > 0) ok = ok && kpos > qpos - p.window;
-          if (!ok) x = kNegInf;
+        for (int mm = 0; mm < 4; ++mm) {
+          const int64_t kpos = k0 + kg + 8 * (2 * mm + dh);
+          const bool ok = (!p.causal || kpos <= qpos) &&
+                          (p.window == 0 || kpos > qpos - p.window);
+          x[i][mm] = kpos >= p.T ? -INFINITY
+                                 : (ok ? x[i][mm] * p.scale : kNegInf);
         }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
       }
+    }
+    float corr[R];
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+    for (int i = 0; i < R; ++i) {
+      float mx = fmaxf(fmaxf(x[i][0], x[i][1]), fmaxf(x[i][2], x[i][3]));
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * corr + rs;
+      const float m_new = fmaxf(m[i], no_mask ? mx * p.scale : mx);
+      corr[i] = fast_exp2((m[i] - m_new) * kLog2e);
       m[i] = m_new;
+      float rs = 0.f;
+      if (no_mask) {
+        const float ml = m_new * kLog2e;
+#pragma unroll
+        for (int mm = 0; mm < 4; ++mm) {
+          x[i][mm] = fast_exp2(fmaf(x[i][mm], sl2, -ml));
+          rs += x[i][mm];
+        }
+      } else {
+#pragma unroll
+        for (int mm = 0; mm < 4; ++mm) {
+          x[i][mm] = fast_exp2((x[i][mm] - m_new) * kLog2e);
+          rs += x[i][mm];
+        }
+      }
+      l[i] = l[i] * corr[i] + rs;     // this thread's part of the row sum
+#pragma unroll
+      for (int mm = 0; mm < 4; ++mm)
+        prow[16 * i * kPPitch + kg + 8 * (2 * mm + dh)] = x[i][mm];
+    }
+    __syncwarp();                     // p of the warp's rows is written
+
+    // acc = acc corr + p . v: per 4 keys, R + 4 DVC float4 reads for
+    // 16 R DVC FFMAs.  Columns 64 c + 4 cg are chunk cg % 8 of box
+    // 2 c + cg / 8.
+    advance(2 * it + 1);
+    const float* vcol = ring + ((2 * it + 1) % NS) * p.slot +
+                        (cg >> 3) * kBK * kBox;
+#pragma unroll
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int c = 0; c < DVC; ++c)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][c][e] *= corr;
-    }
-
-    __syncthreads();   // every thread is done reading ks
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ps[(ty + 16 * i) * kPStride + tx + 16 * j] = s[i][j];
-    __syncthreads();
-
-    // acc += p.v over the tile's 64 keys
+        for (int e = 0; e < 4; ++e) acc[i][c][e] *= corr[i];
+#pragma unroll 2
     for (int kk = 0; kk < kBK; kk += 4) {
-      float4 pv[4];
+      float4 pf[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(
-            &ps[(ty + 16 * i) * kPStride + kk]);
+      for (int i = 0; i < R; ++i)
+        pf[i] = *reinterpret_cast<const float4*>(&prow[16 * i * kPPitch + kk]);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float* vrow = &vs[(kk + u) * DVP + 4 * tx];
+        const int key = kk + u;
+        const float* vrow = vcol + key * kBox + (((cg & 7) ^ (key & 7)) << 2);
 #pragma unroll
         for (int c = 0; c < DVC; ++c) {
-          const float4 vv = *reinterpret_cast<const float4*>(&vrow[64 * c]);
+          const float4 vv =
+              *reinterpret_cast<const float4*>(vrow + 2 * c * kBK * kBox);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float pp = lane(pv[i], u);
+          for (int i = 0; i < R; ++i) {
+            const float pp = lane(pf[i], u);
             acc[i][c][0] = fmaf(pp, vv.x, acc[i][c][0]);
             acc[i][c][1] = fmaf(pp, vv.y, acc[i][c][1]);
             acc[i][c][2] = fmaf(pp, vv.z, acc[i][c][2]);
@@ -744,50 +886,69 @@ flash_fwd_simt(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
+  // out = acc / max(l, 1e-30), l summed over the row's 16 lanes
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int64_t qpos = q0 + ty + 16 * i;
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int64_t qpos = q0 + rg + 16 * i;
     if (qpos >= p.S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = o + ((b * p.S + qpos) * p.H + h) * (int64_t)p.Dv;
+    float* orow = o + ((b * p.S + qpos) * H + h) * (int64_t)p.Dv;
 #pragma unroll
-    for (int c = 0; c < DVC; ++c)
+    for (int c = 0; c < DVC; ++c) {
+      const int col = 64 * c + 4 * cg;
+      const float4 r = make_float4(acc[i][c][0] / denom, acc[i][c][1] / denom,
+                                   acc[i][c][2] / denom, acc[i][c][3] / denom);
+      if ((p.Dv & 3) == 0) {
+        if (col < p.Dv) *reinterpret_cast<float4*>(&orow[col]) = r;
+      } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 64 * c + 4 * tx + e;
-        if (col < p.Dv) orow[col] = acc[i][c][e] / denom;
+        for (int e = 0; e < 4; ++e)
+          if (col + e < p.Dv) orow[col + e] = lane(r, e);
       }
+    }
   }
 }
 
-// q / k tile pitch in floats: odd in 16-byte units, so a quarter-warp's k
-// rows hit distinct banks
-int tile_pitch(int d) {
-  const int d4 = (d + 3) & ~3;
-  return (d4 / 4) % 2 == 0 ? d4 + 4 : d4 + 8;
+size_t simt_smem_bytes(int bq, int ns, int nbk, int slot) {
+  return sizeof(float) * ((size_t)bq * kBox * nbk + (size_t)ns * slot +
+                          (size_t)bq * kPPitch) +
+         8 * (1 + ns);
 }
 
-size_t simt_smem_bytes(int dp, int dvc) {
-  const int k_floats = kBK * dp > kBQ * kPStride ? kBK * dp : kBQ * kPStride;
-  return sizeof(float) * ((size_t)kBQ * dp + k_floats + (size_t)kBK * 64 * dvc);
-}
-
-template <int DVC>
+template <int BQ, int DVC, int NS>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
-                const Params& p, int64_t batch, cudaStream_t stream) {
-  auto kernel = flash_fwd_simt<DVC>;
-  // the largest tile this instance can need (D = 256)
+                Params& p, const int64_t* strides, int64_t batch,
+                cudaStream_t stream) {
+  const int64_t q_shape[4] = {batch, p.S, p.H, p.D};
+  const int64_t k_shape[4] = {batch, p.T, p.Hk, p.D};
+  const int64_t v_shape[4] = {batch, p.T, p.Hk, p.Dv};
+  constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  constexpr CUtensorMapSwizzle kSw = CU_TENSOR_MAP_SWIZZLE_128B;
+  CUtensorMap tq = {}, tk = {}, tv = {};
+  p.tma_q = encode_map(&tq, kF32, 4, kBox, kSw, q, q_shape, strides, BQ);
+  p.tma_kv =
+      encode_map(&tk, kF32, 4, kBox, kSw, k, k_shape, strides + 4, kBK) &&
+      encode_map(&tv, kF32, 4, kBox, kSw, v, v_shape, strides + 8, kBK);
+  auto kernel = flash_fwd_simt<BQ, DVC, NS>;
   static bool configured[kMaxDevices] = {};
-  const int err = allow_smem(
-      kernel, simt_smem_bytes(tile_pitch(kMaxDim), DVC), configured);
+  const int err = allow_smem(kernel, kSmemMax, configured);
   if (err != 0) return err;
-  const dim3 grid((unsigned)((p.S + kBQ - 1) / kBQ), (unsigned)p.H,
-                  (unsigned)batch);
-  kernel<<<grid, kThreads, simt_smem_bytes(p.dp, DVC), stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, p);
+  const size_t smem = simt_smem_bytes(BQ, NS, p.nbk, p.slot);
+  const int64_t blocks = p.H * ((p.S + BQ - 1) / BQ);
+  if (smem > kSmemMax || blocks > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, (unsigned)batch);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, (const float*)q, (const float*)k, (const float*)v,
+      (float*)o, p);
   return (int)cudaGetLastError();
 }
 
+// 128 query rows and a 3-slot ring where D <= 128 and Dv <= 128 (the
+// models' head sizes), else 64 rows and 2 slots (D or Dv up to 256).
 int dispatch_simt(const void* q, const void* k, const void* v, void* o,
                   const int64_t* dims, const int64_t* strides, int causal,
                   int window, float scale, cudaStream_t stream) {
@@ -803,15 +964,22 @@ int dispatch_simt(const void* q, const void* k, const void* v, void* o,
     p.ks[i] = strides[4 + i];
     p.vs[i] = strides[8 + i];
   }
-  p.dp = tile_pitch(p.D);
+  p.nbk = (p.D + kBox - 1) / kBox;
+  p.nbv = (p.Dv + kBox - 1) / kBox;
   p.causal = causal;
   p.window = window;
   p.scale = scale;
-  switch ((p.Dv + 63) / 64) {
-    case 1: return launch_simt<1>(q, k, v, o, p, dims[0], stream);
-    case 2: return launch_simt<2>(q, k, v, o, p, dims[0], stream);
-    case 3: return launch_simt<3>(q, k, v, o, p, dims[0], stream);
-    case 4: return launch_simt<4>(q, k, v, o, p, dims[0], stream);
+  p.slot = kBK * kBox * (p.nbk > p.nbv ? p.nbk : p.nbv);
+  const int dvc = (p.Dv + 63) / 64;
+  const int64_t B = dims[0];
+  if (dvc <= 2 && simt_smem_bytes(128, 3, p.nbk, p.slot) <= kSmemMax)
+    return dvc == 1 ? launch_simt<128, 1, 3>(q, k, v, o, p, strides, B, stream)
+                    : launch_simt<128, 2, 3>(q, k, v, o, p, strides, B, stream);
+  switch (dvc) {
+    case 1: return launch_simt<64, 1, 2>(q, k, v, o, p, strides, B, stream);
+    case 2: return launch_simt<64, 2, 2>(q, k, v, o, p, strides, B, stream);
+    case 3: return launch_simt<64, 3, 2>(q, k, v, o, p, strides, B, stream);
+    case 4: return launch_simt<64, 4, 2>(q, k, v, o, p, strides, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tensor
-// loads and warpgroup matrix products (wgmma) on bf16 operands with float32
-// accumulators.  Header only; every function is device-inline.
+// Hopper (sm_90a) building blocks in inline PTX: mbarriers, cp.async
+// element copies, TMA tensor loads and warpgroup matrix products (wgmma) on
+// bf16 operands with float32 accumulators.  Header only; every function is
+// device-inline.
 //
 // Shared-memory tiles read by wgmma are written by TMA with the 128-byte
 // swizzle: a tile of R rows by 64 bf16 columns (128 bytes a row), 8-row
@@ -59,6 +60,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "memory");
     if (!done && clock64() - start > (1ll << 34)) __trap();
   } while (!done);
+}
+
+// -- cp.async ---------------------------------------------------------------
+
+// Copies one 4-byte element of global memory at `src` into shared memory at
+// `dst` without staging through registers (`bytes` 0 or 4; 0 writes a
+// zero).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+// One arrival on `bar` once every cp.async this thread has issued so far
+// has landed; the arrival is not added to the pending count, so `bar`'s
+// initial count includes it.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 
 // -- TMA --------------------------------------------------------------------

@@ -30,9 +30,13 @@ bf16(p - p_hi)``, which keeps about 16 bits of p for 1.5× the reference's
 FLOPs.  TMA reads the reference's ``(B, S, H, D)`` layout through the
 strides (no copies), so each bf16 operand needs its last stride 1 and its
 other strides and base address 16-byte aligned (:func:`tma_layout_ok`);
-the wrapper raises otherwise.  The float32 kernel runs on the SIMT units
-and takes any strides.  S and T need not be multiples of any tile.  The
-design is described in the source.
+the wrapper raises otherwise.  The float32 kernel stays exact float32:
+every product is one FFMA on the SIMT units, from register tiles of 8 rows
+by 8 keys (q·k, over half the depth each) and 8 rows by 8 value columns
+(p·v), with K/V tiles brought into a ring of shared memory by TMA while
+earlier tiles compute.  It takes any strides: an operand TMA cannot read is
+copied element by element into the same tiles.  S and T need not be
+multiples of any tile.  The design is described in the source.
 """
 
 from __future__ import annotations

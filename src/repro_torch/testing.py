@@ -8,11 +8,13 @@ bit-views (words).
 :func:`run_ranks` runs a function on N spawned processes joined into one
 gloo group, the port's stand-in for the reference's N-device mesh;
 :func:`allreduce_worker` is the client side of the allreduce tests.  The
-spawned processes import only this package.
+spawned processes import only this package.  Under pytest-xdist,
+importing this module limits torch to one intra-op thread per worker.
 """
 
 from __future__ import annotations
 
+import os
 import queue as queue_mod
 import time
 import traceback
@@ -24,6 +26,19 @@ import torch.distributed as dist
 
 __all__ = ["to_torch", "to_numpy", "key_to_torch", "requires_cuda",
            "cuda_device", "run_ranks", "allreduce_worker"]
+
+
+def _share_cores() -> None:
+    """One torch intra-op thread in each pytest-xdist worker.  The workers
+    share the host's cores, and torch's default (a thread per core in every
+    worker) oversubscribes them: six concurrent runs of a round test on 8
+    cores took 67 s of wall time, 26 s with one thread each.  Every worker
+    imports every test module while collecting, so this covers them all."""
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        torch.set_num_threads(1)
+
+
+_share_cores()
 
 
 def to_torch(x, device="cpu") -> torch.Tensor:

@@ -476,6 +476,11 @@ def _close(got, want, dtype):
     (1, 300, 700, 4, 2, 256, 256, False, 64),     # Gemma's head_dim
     (1, 700, 300, 4, 2, 64, 64, False, 64),       # rows 363.. see no key
     (1, 333, 333, 4, 2, 256, 256, True, 0),       # T ragged in 64-key tiles
+    (1, 129, 191, 4, 2, 128, 128, True, 0),       # S, T ragged in every tile
+    (1, 191, 129, 4, 4, 96, 96, False, 0),        # D = Dv = 96, T < S
+    (2, 4097, 4097, 8, 1, 128, 128, True, 0),     # GQA 8, one row past 4,096
+    (1, 640, 640, 4, 2, 128, 128, True, 37),      # window ends inside a tile
+    (1, 1100, 300, 4, 2, 128, 128, False, 100),   # rows 399.. see no key
 ])
 def test_flash_attention_matches_plain_on_card(cuda_device, dtype, b, s, t, h,
                                                hk, d, dv, causal, window):
@@ -503,6 +508,34 @@ def test_flash_attention_reads_strides_on_card(cuda_device):
     got = flash_attention.flash_attention(q, k, v, window=128)
     want = flash_attention.flash_attention_plain(q.contiguous(), k.contiguous(),
                                                  v.contiguous(), window=128)
+    _close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("operand", ["q", "k", "v"])
+@pytest.mark.parametrize("layout", ["last_stride", "offset_base"])
+def test_flash_attention_f32_layouts_on_card(cuda_device, layout, operand):
+    # float32 operands that cannot be read 16 bytes at a time (a last stride
+    # other than 1, or a base one float past a 16-byte boundary) are copied
+    # element by element into the same tiles
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    shapes = {"q": (1, 300, 4, 128), "k": (1, 300, 2, 128),
+              "v": (1, 300, 2, 128)}
+    ops = {n: torch.randn(sh, device=cuda_device, generator=gen)
+           for n, sh in shapes.items()}
+    sh = shapes[operand]
+    if layout == "last_stride":
+        x = torch.randn(*sh[:2], sh[3], sh[2], device=cuda_device,
+                        generator=gen).transpose(2, 3)
+        assert x.stride(3) != 1
+    else:
+        flat = torch.randn(int(np.prod(sh)) + 1, device=cuda_device,
+                           generator=gen)
+        x = flat[1:].view(sh)
+        assert x.data_ptr() % 16 != 0
+    ops[operand] = x
+    got = flash_attention.flash_attention(ops["q"], ops["k"], ops["v"])
+    want = flash_attention.flash_attention_plain(
+        *(ops[n].contiguous() for n in "qkv"))
     _close(got, want, torch.float32)
 
 
