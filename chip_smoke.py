@@ -115,7 +115,17 @@ Phases, each of which raises (and exits non-zero) on failure:
    ``benchmarks/obs.py``'s smoke cell gated at 1.10, a ``profiler_trace``
    chrome trace; the B1 and B2 counts zeroed just before each run and
    read just after, tallied by shape;
-12. allreduce path: 8 ranks on the one card over gloo (spawned once), each
+12. sweep path (``sweep/``: the scenario grids through ``run_sweep``'s
+   fleets, local training batched across cells, kernels on): the smoke
+   grid (4 cells, 2 fleet groups) and the chaos grid (5 packet cells under
+   faults) against ``sequential=True``, every history bitwise; the
+   paper's Fig. 2 grid at full width (8 cells, N = 20, 40 rounds) through
+   the fleets, one high-profile cell of each of its 4 fleet groups bitwise
+   its own sequential run, cells per second of both paths, the fleet's idle
+   share and B1 launches; one smoke-grid FediAC cell card against CPU;
+   the B1 and B2 counts zeroed just before each run and read just after,
+   tallied by shape;
+13. allreduce path: 8 ranks on the one card over gloo (spawned once), each
    one client of ``fediac_allreduce`` at d = 12,500,992 (one device's
    slice of the reference's d ~ 1e8 sort-free scale cell) on the packed
    wire, threshold/block (``vote_pack`` + ``popcount``) and topk/topk
@@ -128,13 +138,13 @@ Phases, each of which raises (and exits non-zero) on failure:
    d = 1,000,000; then round and collective times; then one NCCL rank
    (world size 1) running the packed top-k allreduce and both mesh
    baselines, each bitwise against the same call on a one-rank gloo group;
-13. timing: each kernel, its plain version and its memory bound at the main
+14. timing: each kernel, its plain version and its memory bound at the main
    paths' shapes (``gather_quant`` at each of its shapes), and whole
    rounds.  A kernel's ``ms`` is CUDA-event time per wrapper call (it
    includes the host's launch work whenever that is slower than the
    kernel); ``device_ms`` is the kernel alone, per launch of a replayed
    CUDA graph of back-to-back calls;
-14. serve path: Qwen3-0.6B at full width and depth (28 layers, random
+15. serve path: Qwen3-0.6B at full width and depth (28 layers, random
    weights from ``PRNGKey(0)``) prefills 2 requests of 32,768 tokens
    through ``make_serve_step`` (the counts zeroed just before; B6's bf16
    tensor-core instance must launch once per layer), its logits finite;
@@ -2770,6 +2780,138 @@ def phase_async(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The sweep path: repro_torch.sweep's fleets against its sequential runs
+# ---------------------------------------------------------------------------
+
+#: fig2_grid's cells held against their own sequential runs: one lane of
+#: each fleet group, the high switch profile's
+FIG2_GATED = ("high/fediac", "high/switchml", "high/libra",
+              "high/omnireduce")
+SWEEP_CHECK_ROUNDS = 3      # rounds of the smoke-grid cell, card vs CPU
+SWEEP_CHECK_CELL = "fediac-a3"
+SWEEP_PROFILE_ROUNDS = 3    # fig2's fleet cut to these rounds, profiled
+
+
+def _kernels_on(grid) -> list:
+    """A grid's cells with the fused kernels on, so that FediAC's rounds
+    launch B1."""
+    from repro_torch.core.engines import EngineSpec
+    return [dataclasses.replace(s, engine=EngineSpec(use_pallas=True))
+            for s in grid]
+
+
+def phase_sweep(card: str) -> dict:
+    """The scenario sweep on the card, kernels on: (a) smoke_grid (4 cells,
+    2 fleet groups) and chaos_grid (5 packet cells under faults, one
+    group) through ``run_sweep``'s fleets against ``sequential=True``,
+    every history bitwise; (b) fig2_grid at full width (8 cells, N = 20,
+    40 rounds) through the fleets, FIG2_GATED's cells (one per group)
+    bitwise their own sequential runs, the fleet's cells per second beside the sequential
+    path's, its device idle share (profiled, cut to SWEEP_PROFILE_ROUNDS
+    rounds) and its B1 launches; (c) one smoke-grid FediAC cell,
+    SWEEP_CHECK_ROUNDS rounds, card against CPU: traffic and clock equal,
+    accuracy and loss within FL_TOL.  The B1 and B2 counts are zeroed just
+    before each run and read just after, tallied by shape."""
+    import torch
+    from repro_torch.sweep import run_cell_sequential, run_sweep
+    from repro_torch.sweep.grids import chaos_grid, fig2_grid, smoke_grid
+    out = {"card": card}
+    counted = _QuantCounter()
+
+    def run(fn):
+        t0 = time.perf_counter()
+        res, rose, by_shape = counted(fn)
+        return res, rose, by_shape, time.perf_counter() - t0
+
+    # -- (a) the smoke and chaos grids, fleet against sequential
+    for name, factory in (("smoke", smoke_grid), ("chaos", chaos_grid)):
+        grid = _kernels_on(factory())
+        fleet, rose_f, shapes_f, s_f = run(lambda: run_sweep(grid, device=DEV))
+        seq, rose_s, _, s_s = run(lambda: run_sweep(grid, device=DEV,
+                                                    sequential=True))
+        bad = [a.key for a, b in zip(fleet, seq)
+               if not _same_history(a.history, b.history)]
+        check(not bad, f"sweep {name}: fleet != sequential for {bad}")
+        check(rose_f == rose_s and rose_f["gather_quant"] > 0,
+              f"sweep {name}: launches fleet {rose_f}, sequential {rose_s}")
+        out[name] = {
+            "cells": len(grid),
+            "fleet_groups": len({c.batch_signature() for c in grid}),
+            "bitwise": [a.key for a in fleet],
+            "fleet_s": s_f, "sequential_s": s_s,
+            "fleet_cells_per_s": len(grid) / s_f,
+            "sequential_cells_per_s": len(grid) / s_s,
+            "fleet_launches": rose_f, "fleet_launches_by_shape": shapes_f}
+        log(f"[sweep] {card}: {name}_grid fleet == sequential bitwise "
+            f"({len(grid)} cells): fleet {s_f:.2f} s, sequential "
+            f"{s_s:.2f} s; B1/B2 under the fleet {rose_f}")
+
+    # -- (b) fig2_grid at full width: the fleets, gated cells, idle share
+    grid = _kernels_on(fig2_grid())
+    fleet, rose_f, shapes_f, s_f = run(lambda: run_sweep(grid, device=DEV))
+    by_name = {c.spec.name: c for c in fleet}
+    gated, s_seq = [], 0.0
+    for name in FIG2_GATED:
+        cell = by_name[name]
+        h, _, _, s = run(lambda: run_cell_sequential(cell.spec, cell.seed,
+                                                     device=DEV))
+        check(_same_history(h, cell.history),
+              f"sweep fig2: fleet != sequential for {name}")
+        gated.append(name)
+        s_seq += s
+    check(all(math.isfinite(x) for c in fleet for x in c.history.loss),
+          "sweep fig2: a loss is not finite")
+    cut = [dataclasses.replace(c, rounds=SWEEP_PROFILE_ROUNDS) for c in grid]
+    cut_s = wall_ms(lambda: run_sweep(cut, device=DEV), iters=1) / 1e3
+    rows = device_profile(lambda: run_sweep(cut, device=DEV), iters=1,
+                          warm=False)
+    busy = sum(ms for _, ms, _ in rows) / 1e3
+    out["fig2"] = {
+        "cells": len(grid), "rounds": grid[0].rounds,
+        "n_clients": grid[0].n_clients,
+        "fleet_groups": len({c.batch_signature() for c in grid}),
+        "bitwise_vs_sequential": gated, "fleet_s": s_f,
+        "fleet_cells_per_s": len(grid) / s_f,
+        "sequential_s": s_seq,
+        "sequential_cells_per_s": len(gated) / s_seq,
+        "fleet_launches": rose_f, "fleet_launches_by_shape": shapes_f,
+        "final_acc": {c.spec.name: c.history.acc[-1] for c in fleet},
+        "profiled_rounds": SWEEP_PROFILE_ROUNDS, "profiled_wall_s": cut_s,
+        "profiled_device_s": busy,
+        "idle_share": 1.0 - busy / cut_s if rows else None,
+        "top_kernels": [[k, ms, n] for k, ms, n in rows[:6]]}
+    log(f"[sweep] {card}: fig2_grid fleet {s_f:.2f} s for {len(grid)} cells "
+        f"x {grid[0].rounds} rounds ({len(grid) / s_f:.3f} cells/s), "
+        f"sequential {len(gated) / s_seq:.3f} cells/s; {gated} bitwise; "
+        f"idle share {out['fig2']['idle_share']}; B1 under the fleet "
+        f"{rose_f['gather_quant']}")
+
+    # -- (c) one smoke-grid FediAC cell, card against CPU
+    cell = next(dataclasses.replace(c, rounds=SWEEP_CHECK_ROUNDS)
+                for c in _kernels_on(smoke_grid())
+                if c.name == SWEEP_CHECK_CELL)
+    (card_res,), _, _, _ = run(lambda: run_sweep([cell], device=DEV))
+    cpu_h = run_sweep([cell], device="cpu").cells[0].history
+    h = card_res.history
+    check(h.traffic_mb == cpu_h.traffic_mb and h.wall_clock == cpu_h.wall_clock,
+          "sweep card vs CPU: traffic / clock differ")
+    gap = max(max(abs(a - b) for a, b in zip(h.acc, cpu_h.acc)),
+              max(abs(a - b) for a, b in zip(h.loss, cpu_h.loss)))
+    check(gap <= FL_TOL, f"sweep card vs CPU: acc/loss gap {gap}")
+    out["card_vs_cpu"] = {"cell": cell.name, "rounds": cell.rounds,
+                          "acc_loss_gap": gap, "tolerance": FL_TOL}
+    log(f"[sweep] {card}: {cell.name} card vs CPU: traffic and clock equal, "
+        f"acc/loss gap {gap:.3g}")
+    torch.cuda.synchronize()
+
+    out["launches"] = counted.launches
+    out["launches_by_shape"] = counted.tally
+    log(f"[sweep] {card}: B1/B2 launches {counted.launches} by shape "
+        f"{counted.tally}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The allreduce path: AR_RANKS clients, one rank each, on the one card
 # ---------------------------------------------------------------------------
 
@@ -3656,6 +3798,7 @@ def main() -> int:
     packet = timed("packet", phase_packet, card)
     faults = timed("faults", phase_faults, card)
     asyn = timed("async", phase_async, card)
+    sweep = timed("sweep", phase_sweep, card)
     allreduce = timed("allreduce", phase_allreduce, card)
     nccl = timed("nccl", phase_nccl, card)
     timing = timed("timing", phase_timing, u_stack, key)
@@ -3682,9 +3825,11 @@ def main() -> int:
         on_packet = packet["launches"].get(name, 0)
         on_faults = faults["launches"].get(name, 0)
         on_async = asyn["launches"].get(name, 0)
+        on_sweep = sweep["launches"].get(name, 0)
         launches = (main_path["launches"].get(name, 0)
                     + compare["launches"][name] + on_stream + on_packet
-                    + on_faults + on_async + allreduce["launches"][name])
+                    + on_faults + on_async + on_sweep
+                    + allreduce["launches"][name])
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches,
                  "on_path": name != "unpack",
@@ -3700,7 +3845,7 @@ def main() -> int:
             at_shape = (main_path["round_launches"]
                         + compare["robust_round_launches"])
             fl = (launches - at_shape - allreduce["launches"][name]
-                  - on_stream - on_packet - on_faults - on_async)
+                  - on_stream - on_packet - on_faults - on_async - on_sweep)
             cell = stream["b1_chunk"]
             entry["launches_at_shape"] = at_shape
             entry["also_at"] = [
@@ -3743,6 +3888,12 @@ def main() -> int:
             entry["async_launches"] = on_async
             entry["async_launches_by_shape"] = asyn[
                 "launches_by_shape"].get(name, {})
+        if name in sweep["launches"]:
+            # the sweep path's launches (the smoke, chaos and fig2 grids'
+            # fleets and sequential runs, the card-vs-CPU cell), by shape
+            entry["sweep_launches"] = on_sweep
+            entry["sweep_launches_by_shape"] = sweep[
+                "launches_by_shape"].get(name, {})
         kernels.append(entry)
     b6 = serve["b6"]
     instance_keys = ("launches", "ms", "device_ms", "plain_ms", "bound_ms",
@@ -3778,6 +3929,7 @@ def main() -> int:
                "stream": {k: v for k, v in stream.items() if k != "b1_chunk"},
                "shard": shard, "packet": packet, "faults": faults,
                "async": asyn,
+               "sweep": sweep,
                "allreduce": allreduce,
                "nccl": nccl,
                "serve": serve,

@@ -191,19 +191,39 @@ def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (lo + hi) & _M32
 
 
-def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+def randint(key: torch.Tensor, shape, minval: int,
+            maxval: "int | torch.Tensor") -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` as int32 (jax's
-    double-width modulus, in the wrapping uint32 arithmetic it uses)."""
-    minval, maxval = int(minval), int(maxval)
-    if not (-2**31 <= minval < 2**31 and -2**31 <= maxval < 2**31):
+    double-width modulus, in the wrapping uint32 arithmetic it uses).
+
+    ``maxval`` may be an int32 tensor instead of an int: its shape is a prefix of the output's leading (key) axes, and each
+    entry bounds the draws below it, as a traced bound does under
+    ``jax.vmap``.  The draws are the same bits as with that bound given as
+    an int."""
+    minval = int(minval)
+    bounded = isinstance(maxval, torch.Tensor)
+    if not bounded:
+        maxval = int(maxval)
+    if not (-2**31 <= minval < 2**31
+            and (bounded or -2**31 <= maxval < 2**31)):
         raise ValueError("randint bounds must fit int32")
     ks = split(key, 2)
     higher = random_bits(ks[..., 0, :], shape)
     lower = random_bits(ks[..., 1, :], shape)
-    span = 1 if maxval <= minval else (maxval - minval) & _M32
-    mult = (2 ** 16) % span
-    mult = ((mult * mult) & _M32) % span
-    offset = (_mul32(higher % span, torch.full_like(higher, mult))
-              + lower % span) & _M32
+    if bounded:
+        if maxval.dtype != torch.int32:
+            raise TypeError(f"randint maxval must be an int32 tensor, got "
+                            f"{maxval.dtype}")
+        hi = maxval.to(device=higher.device, dtype=torch.int64)
+        hi = hi.reshape(*hi.shape, *([1] * (higher.dim() - hi.dim())))
+        span = torch.where(hi <= minval, 1, (hi - minval) & _M32)
+        mult = ((((2 ** 16) % span) ** 2) & _M32) % span
+        offset = (_mul32(higher % span, mult) + lower % span) & _M32
+    else:
+        span = 1 if maxval <= minval else (maxval - minval) & _M32
+        mult = (2 ** 16) % span
+        mult = ((mult * mult) & _M32) % span
+        offset = (_mul32(higher % span, torch.full_like(higher, mult))
+                  + lower % span) & _M32
     out = (offset % span + minval) & _M32
     return torch.where(out >= 2**31, out - 2**32, out).to(torch.int32)

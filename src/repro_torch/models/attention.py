@@ -5,10 +5,12 @@ Mirrors the reference's ``models/attention.py``.  Sequences longer than
 ``DENSE_MAX_SEQ`` take the blockwise branch: on a CUDA tensor it launches
 the hand-written flash-attention kernel
 (:func:`repro_torch.kernels.flash_attention.flash_attention`, which
-computes what the reference's Pallas kernel computes), on a CPU tensor it
-runs the plain :func:`_blockwise_attention` below, the reference's
-two-level online-softmax scan as Python loops.  The kernel picks its own
-tiles; ``attn_q_block`` / ``attn_kv_block`` are the plain path's.
+computes what the reference's Pallas kernel computes, at positions
+``arange``: callers declare theirs, see :func:`multihead_attention`), on a
+CPU tensor it runs the plain :func:`_blockwise_attention` below, the
+reference's two-level online-softmax scan as Python loops.  The kernel
+picks its own tiles; ``attn_q_block`` / ``attn_kv_block`` are the plain
+path's.
 """
 
 from __future__ import annotations
@@ -150,12 +152,19 @@ def _blockwise_attention(q, k, v, qpos, kpos, causal, window, scale,
 
 def multihead_attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                         kv_x: torch.Tensor | None = None, causal: bool = True,
-                        kv_positions: torch.Tensor | None = None) -> torch.Tensor:
+                        kv_positions: torch.Tensor | None = None,
+                        arange_positions: bool = False) -> torch.Tensor:
     """Self- (kv_x=None) or cross-attention over full sequences (prefill).
 
-    On the card the blockwise branch's kernel takes query and key positions
-    ``arange(S)`` / ``arange(T)``, as the reference's Pallas kernel does;
-    ``forward``, the only caller, always passes ``arange(S)``."""
+    On the card the blockwise branch's kernel masks by query and key
+    positions ``arange(S)`` / ``arange(T)``, as the reference's Pallas
+    kernel does.  So it runs only for a caller that declares its
+    ``positions`` (and ``kv_positions``) to be those with
+    ``arange_positions=True``, as ``forward`` does; any other call on the
+    card above ``DENSE_MAX_SEQ`` raises.  The flag is taken on trust: the
+    positions are never read back from the card.  The dense branch and
+    the CPU's blockwise branch mask by the positions given, flag or no
+    flag."""
     b, s, d = x.shape
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     src = x if kv_x is None else kv_x
@@ -179,6 +188,12 @@ def multihead_attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tenso
             raise NotImplementedError(
                 "cross-attention over padded encoder positions has no kernel "
                 "yet (ROADMAP queue A11: the encoder-decoder slice)")
+        if not arange_positions:
+            raise NotImplementedError(
+                "flash_attention masks by positions arange(S) / arange(T) "
+                "only; attention over other positions above DENSE_MAX_SEQ "
+                "on the card needs the kernel to take key positions "
+                "(ROADMAP queue A11)")
         out = flash_attention(q, k, v, causal=causal, window=window)
     else:
         out = _blockwise_attention(q, k, v, positions, kv_positions, causal,

@@ -116,7 +116,8 @@ def forward(params: Model, cfg, batch: dict, *, last_only: bool = False):
     x = _embed(params, cfg, tokens)
     pos = torch.arange(s, device=tokens.device)
     for i, spec in enumerate(tr.group_plan(cfg)):
-        x = tr.apply_group(params[f"group{i}"], x, cfg, spec, positions=pos)
+        x = tr.apply_group(params[f"group{i}"], x, cfg, spec, positions=pos,
+                           arange_positions=True)
     if last_only:
         x = x[:, -1:, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -103,13 +103,17 @@ def init_block(key: torch.Tensor, cfg, spec: GroupSpec) -> Block:
                  init_mlp(ks[1], cfg.d_model, spec.d_ff, dt))
 
 
-def apply_block(p: dict, x: torch.Tensor, cfg, spec: GroupSpec, *, positions):
+def apply_block(p: dict, x: torch.Tensor, cfg, spec: GroupSpec, *, positions,
+                arange_positions: bool = False):
     """Full-sequence block (prefill).  Returns x (the reference also
-    returns the MoE aux loss, always 0 for the dense block)."""
+    returns the MoE aux loss, always 0 for the dense block).
+    ``arange_positions`` declares ``positions`` to be ``arange(S)``
+    (:func:`~repro_torch.models.attention.multihead_attention`)."""
     _require_ported(spec)
     h = rms_norm(x, p["ln1"], cfg.rms_eps)
     x = x + attn_mod.multihead_attention(p["mix"], h, cfg, positions=positions,
-                                         causal=spec.causal)
+                                         causal=spec.causal,
+                                         arange_positions=arange_positions)
     if spec.ffn != "none":
         h2 = rms_norm(x, p["ln2"], cfg.rms_eps)
         x = x + apply_mlp(p["ffn"], h2, cfg.act)
@@ -129,9 +133,10 @@ def init_group(key: torch.Tensor, cfg, spec: GroupSpec) -> nn.ModuleList:
 
 
 def apply_group(layers: list, x: torch.Tensor, cfg, spec: GroupSpec, *,
-                positions):
+                positions, arange_positions: bool = False):
     for layer_p in layers:
-        x = apply_block(layer_p, x, cfg, spec, positions=positions)
+        x = apply_block(layer_p, x, cfg, spec, positions=positions,
+                        arange_positions=arange_positions)
     return x
 
 

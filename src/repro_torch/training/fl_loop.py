@@ -49,7 +49,8 @@ from repro_torch.validate import (check_at_least, check_choice,
 
 __all__ = ["MLP", "init_mlp", "mlp_apply", "accuracy", "ravel", "unravel",
            "params_from_jax", "FLConfig", "RoundRecord", "FLHistory",
-           "minibatch_indices", "make_client_round", "run_federated"]
+           "minibatch_indices", "make_client_round", "FLRun",
+           "run_federated"]
 
 
 # ---------------------------------------------------------------------------
@@ -287,27 +288,54 @@ def _stack_clients(clients, batch: int, rng: np.random.Generator, device):
 
 
 def minibatch_indices(key: torch.Tensor, n_clients: int, local_steps: int,
-                      batch: int, size: int) -> torch.Tensor:
+                      batch: int, size) -> torch.Tensor:
     """int32[N, E, batch] sample indices of every client's local steps —
     the reference's ``randint`` draws under ``split(key, N)`` then
-    ``split(k_i, E)``."""
-    ks = prng.split(prng.split(key, n_clients), local_steps)
-    return prng.randint(ks, (batch,), 0, size)
+    ``split(k_i, E)``.  ``key`` is the round's key (split into the N
+    client keys here) or those client keys already split (``[N, 2]``);
+    ``size`` is the sampling bound: an int, or an int32 tensor ``[N]`` of
+    per-client bounds."""
+    keys = key if key.dim() == 2 else prng.split(key, n_clients)
+    if keys.shape[0] != n_clients:
+        raise ValueError(f"{keys.shape[0]} client keys for {n_clients} "
+                         "clients")
+    return prng.randint(prng.split(keys, local_steps), (batch,), 0, size)
+
+
+def _per_client(x, like: torch.Tensor):
+    """A Python float as is; a tensor of per-client values ``[N]`` shaped
+    to broadcast against ``like`` (``[N, ...]``)."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    return x.reshape(-1, *([1] * (like.dim() - 1)))
 
 
 def make_client_round(dims: tuple[int, ...], batch: int, local_steps: int):
     """The per-round local-training program: E SGD steps on every client.
 
-    ``client_round(flat, key, lr, cx, cy) -> (u_stack [N, d], losses [N])``
-    with ``u = flat - w_final`` per client and ``losses`` each client's
-    mean post-step loss over its E steps.
+    ``client_round(flat, key, lr, cx, cy, size=None) -> (u_stack [N, d],
+    losses [N])`` with ``u = flat - w_final`` per client and ``losses``
+    each client's mean post-step loss over its E steps.  ``flat`` is the
+    global model ``[d]`` or one model per client ``[N, d]``; ``key`` the
+    round's key or the N client keys (:func:`minibatch_indices`); ``lr``
+    a Python float or a float32 tensor ``[N]`` of per-client rates;
+    ``size`` the sampling bound: ``None`` (all of ``cy``'s rows), an int,
+    or an int32 tensor ``[N]``, so a client whose rows were zero-padded
+    past its own draws from its own.  Each client's bits do not depend on
+    which other clients share the call, up to the batched products of the
+    device (``repro_torch.sweep.fleet`` says where they hold).
     """
-    def client_round(flat, key, lr, cx, cy):
-        n, size = cy.shape
+    def client_round(flat, key, lr, cx, cy, size=None):
+        n = cy.shape[0]
+        size = cy.shape[1] if size is None else size
         idx = minibatch_indices(key, n, local_steps, batch, size).long()
         rows = torch.arange(n, device=cx.device)[:, None]
-        params = [{k: v.expand(n, *v.shape).clone().requires_grad_()
-                   for k, v in lyr.items()} for lyr in unravel(flat, dims)]
+        models = unravel(flat, dims)
+        if flat.dim() == 1:
+            models = [{k: v.expand(n, *v.shape) for k, v in lyr.items()}
+                      for lyr in models]
+        params = [{k: v.clone().requires_grad_() for k, v in lyr.items()}
+                  for lyr in models]
         losses = []
         for s in range(local_steps):
             xb, yb = cx[rows, idx[:, s]], cy[rows, idx[:, s]]
@@ -315,7 +343,8 @@ def make_client_round(dims: tuple[int, ...], batch: int, local_steps: int):
             grads = torch.autograd.grad(_ce_loss(params, xb, yb).sum(), leaves)
             grads = iter(grads)
             with torch.no_grad():
-                params = [{k: (lyr[k] - lr * next(grads)).requires_grad_()
+                params = [{k: (lyr[k] - _per_client(lr, lyr[k])
+                               * next(grads)).requires_grad_()
                            for k in ("w", "b")} for lyr in params]
                 losses.append(_ce_loss(params, xb, yb))
         with torch.no_grad():
@@ -328,6 +357,132 @@ def make_client_round(dims: tuple[int, ...], batch: int, local_steps: int):
 def _carry_in(u_stack: torch.Tensor, e_stack: torch.Tensor) -> torch.Tensor:
     """Fold the error-feedback carry into the fresh update stack."""
     return u_stack + e_stack
+
+
+class FLRun:
+    """One FL run between its rounds: the data, the model, the
+    error-feedback stack, the PRNG key, the round transport, the
+    aggregator state, the pricing accumulators and the history.
+
+    :func:`run_federated` drives one; the sweep's fleet
+    (:mod:`repro_torch.sweep.fleet`) drives several, with their local
+    training in one batched call, through the same methods, so the two
+    give the same bits.  A round is :meth:`next_keys`, local training
+    (``make_client_round`` at :meth:`lr`), :func:`_carry_in` with
+    ``e_stack``, ``transport.round``, :meth:`apply`, :meth:`evaluate` and
+    :meth:`record`.
+    """
+
+    def __init__(self, clients, test, flcfg: FLConfig, *, hidden, device,
+                 wrap_transport=None):
+        self.cfg = flcfg
+        rng = np.random.default_rng(flcfg.seed)
+        dim = clients[0].x.shape[1]
+        n_classes = clients[0].n_classes
+        self.dims = (dim, *hidden, n_classes)
+        self.key = prng.PRNGKey(flcfg.seed, device=device)
+        self.model = MLP(init_mlp(self.key, self.dims))
+        self.flat = ravel(self.model.params()).detach()
+        d = self.flat.numel()
+
+        self.cx, self.cy = _stack_clients(clients, flcfg.batch, rng, device)
+        n = self.n = self.cy.shape[0]
+        if n != flcfg.n_clients:
+            raise ValueError(f"{n} clients given, FLConfig.n_clients = "
+                             f"{flcfg.n_clients}")
+
+        agg_kwargs = dict(flcfg.agg_kwargs)
+        if flcfg.aggregator == "fediac" and flcfg.engine is not None:
+            base_cfg = agg_kwargs.get("cfg", FediACConfig())
+            agg_kwargs["cfg"] = replace(base_cfg,
+                                        engine=engines.get(flcfg.engine))
+        self.rates = client_rates(n, flcfg.seed)
+        transport = make_transport(flcfg.aggregator,
+                                   transport=flcfg.transport, net=flcfg.net,
+                                   profile=flcfg.switch, rates=self.rates,
+                                   local_train_s=flcfg.local_train_s,
+                                   **agg_kwargs)
+        if wrap_transport is not None:
+            transport = wrap_transport(transport)
+        self.transport = transport
+
+        self.e_stack = torch.zeros((n, d), dtype=torch.float32, device=device)
+        self.agg_state = None
+        self.hist = FLHistory()
+        self.t_cum = 0.0
+        self.mb_cum = 0.0
+        self.start_round = 0
+        if flcfg.resume and flcfg.ckpt_path and os.path.exists(flcfg.ckpt_path):
+            # the state saved after the last completed round; everything
+            # built above (data, rates, transport) is a pure function of
+            # the config
+            st = load_run_state(flcfg.ckpt_path)
+            self.flat = torch.from_numpy(st["flat"]).to(device)
+            self.e_stack = torch.from_numpy(st["e_stack"]).to(device)
+            self.key = torch.from_numpy(st["key"].astype(np.int64)).to(device)
+            self.agg_state = tree_map(lambda a: torch.from_numpy(a).to(device),
+                                      st["agg_state"])
+            self.start_round = st["round"]
+            self.t_cum, self.mb_cum = st["t_cum"], st["mb_cum"]
+            self.hist = FLHistory(**st["history"])
+        self.xt = torch.from_numpy(test.x).to(device)
+        self.yt = torch.from_numpy(test.y).to(device)
+
+    def lr(self, t: int) -> float:
+        """Round ``t``'s learning rate, ``lr0 / (1 + sqrt(t) / tau)``."""
+        return float(self.cfg.lr0 / (1.0 + np.sqrt(t) / self.cfg.lr_tau))
+
+    def next_keys(self):
+        """Advance the run's key; the round's (local-training, aggregator)
+        keys."""
+        self.key, k1, k2 = prng.split(self.key, 3)
+        return k1, k2
+
+    def apply(self, res) -> tuple[float, float]:
+        """Take the round's aggregate and price the round: the simulated
+        clock and the traffic, in the reference's accumulation order.
+        Returns the clock before the round and the upload bytes."""
+        self.flat = self.flat - res.delta
+        self.e_stack, self.agg_state = res.residuals, res.state
+        traffic, load = res.traffic, res.load
+        sim_t0 = self.t_cum
+        if res.wall_clock_s is not None:
+            self.t_cum += res.wall_clock_s       # packet-simulated round time
+        else:
+            self.t_cum += round_wall_clock(
+                packets_per_client=load.packets_per_client,
+                download_packets=n_packets(traffic.total_bytes),
+                rates=self.rates, profile=self.cfg.switch,
+                local_train_s=self.cfg.local_train_s, aligned=load.aligned)
+        # uploads come from the clients that sent this round (the packet
+        # transport reports exact bytes: dropped voters still spent phase
+        # 1); the broadcast reaches all N clients.
+        up_bytes = (res.upload_bytes if res.upload_bytes is not None
+                    else traffic.total_bytes * res.n_active)
+        self.mb_cum += up_bytes / 1e6 + traffic.total_bytes * self.n / 1e6
+        return sim_t0, up_bytes
+
+    def logits(self) -> torch.Tensor:
+        """The current model's test logits."""
+        self.model.load_flat(self.flat)
+        with torch.no_grad():
+            return self.model(self.xt)
+
+    def evaluate(self) -> float:
+        """The current model's test accuracy."""
+        self.model.load_flat(self.flat)
+        return accuracy(self.model, self.xt, self.yt)
+
+    def record(self, acc: float, losses: torch.Tensor) -> RoundRecord:
+        return self.hist.append_round(acc=acc, wall_clock=self.t_cum,
+                                      traffic_mb=self.mb_cum,
+                                      loss=float(losses.mean()))
+
+    def save(self, t: int) -> None:
+        save_run_state(self.cfg.ckpt_path, flat=self.flat,
+                       e_stack=self.e_stack, key=self.key,
+                       agg_state=self.agg_state, round_idx=t,
+                       t_cum=self.t_cum, mb_cum=self.mb_cum, history=self.hist)
 
 
 def run_federated(clients, test, flcfg: FLConfig, *, hidden=(128, 64),
@@ -345,117 +500,48 @@ def run_federated(clients, test, flcfg: FLConfig, *, hidden=(128, 64),
     result.  It lets a caller watch each round's aggregation, or run it
     on inputs of its own."""
     probe = as_probe(probe)
-    device = resolve_device(device)
-    rng = np.random.default_rng(flcfg.seed)
-    dim = clients[0].x.shape[1]
-    n_classes = clients[0].n_classes
-    dims = (dim, *hidden, n_classes)
-    key = prng.PRNGKey(flcfg.seed, device=device)
-    model = MLP(init_mlp(key, dims))
-    flat = ravel(model.params()).detach()
-    d = flat.numel()
-
-    cx, cy = _stack_clients(clients, flcfg.batch, rng, device)
-    n = cy.shape[0]
-    if n != flcfg.n_clients:
-        raise ValueError(f"{n} clients given, FLConfig.n_clients = "
-                         f"{flcfg.n_clients}")
-
-    agg_kwargs = dict(flcfg.agg_kwargs)
-    if flcfg.aggregator == "fediac" and flcfg.engine is not None:
-        base_cfg = agg_kwargs.get("cfg", FediACConfig())
-        agg_kwargs["cfg"] = replace(base_cfg, engine=engines.get(flcfg.engine))
-    rates = client_rates(n, flcfg.seed)
-    transport = make_transport(flcfg.aggregator, transport=flcfg.transport,
-                               net=flcfg.net, profile=flcfg.switch,
-                               rates=rates, local_train_s=flcfg.local_train_s,
-                               **agg_kwargs)
-    if wrap_transport is not None:
-        transport = wrap_transport(transport)
-    local_round = make_client_round(dims, flcfg.batch, flcfg.local_steps)
+    run = FLRun(clients, test, flcfg, hidden=hidden,
+                device=resolve_device(device), wrap_transport=wrap_transport)
+    local_round = make_client_round(run.dims, flcfg.batch, flcfg.local_steps)
     # host-side observation only: wrap_jit counts calls and times them
     # around the same callables (NullProbe returns them unchanged), and
     # transports with probe support wrap their round cores
     local_round = probe.wrap_jit(local_round, "local_round")
     carry_in = probe.wrap_jit(_carry_in, "carry_in")
-    attach = getattr(transport, "attach_probe", None)
+    attach = getattr(run.transport, "attach_probe", None)
     if attach is not None:
         attach(probe)
-
-    e_stack = torch.zeros((n, d), dtype=torch.float32, device=device)
-    agg_state = None
-    hist = FLHistory()
-    t_cum = 0.0
-    mb_cum = 0.0
-    start_round = 0
-    if flcfg.resume and flcfg.ckpt_path and os.path.exists(flcfg.ckpt_path):
-        # the state saved after the last completed round; everything built
-        # above (data, rates, transport) is a pure function of the config
-        st = load_run_state(flcfg.ckpt_path)
-        flat = torch.from_numpy(st["flat"]).to(device)
-        e_stack = torch.from_numpy(st["e_stack"]).to(device)
-        key = torch.from_numpy(st["key"].astype(np.int64)).to(device)
-        agg_state = tree_map(lambda a: torch.from_numpy(a).to(device),
-                             st["agg_state"])
-        start_round = st["round"]
-        t_cum, mb_cum = st["t_cum"], st["mb_cum"]
-        hist = FLHistory(**st["history"])
-    xt = torch.from_numpy(test.x).to(device)
-    yt = torch.from_numpy(test.y).to(device)
 
     if probe.enabled:
         probe.run_start(kind="fl_run", aggregator=flcfg.aggregator,
                         transport=flcfg.transport,
                         engine=(engines.get(flcfg.engine).name
                                 if flcfg.engine is not None else None),
-                        n_clients=n, rounds=flcfg.rounds, seed=flcfg.seed,
-                        resumed_from=start_round if start_round else None)
+                        n_clients=run.n, rounds=flcfg.rounds, seed=flcfg.seed,
+                        resumed_from=run.start_round or None)
 
-    for t in range(start_round + 1, flcfg.rounds + 1):
+    for t in range(run.start_round + 1, flcfg.rounds + 1):
         with probe.span("round", round=t):
-            lr = flcfg.lr0 / (1.0 + np.sqrt(t) / flcfg.lr_tau)
-            key, k1, k2 = prng.split(key, 3)
+            lr = run.lr(t)
+            k1, k2 = run.next_keys()
             with probe.span("local-train", round=t):
-                u_stack, losses = local_round(flat, k1, float(lr), cx, cy)
-                u_stack = carry_in(u_stack, e_stack)
+                u_stack, losses = local_round(run.flat, k1, lr, run.cx,
+                                              run.cy)
+                u_stack = carry_in(u_stack, run.e_stack)
             with probe.span("aggregate", round=t):
-                res = transport.round(u_stack, agg_state, k2, t)
-            delta, e_stack, agg_state = res.delta, res.residuals, res.state
-            traffic, load = res.traffic, res.load
-            flat = flat - delta
-
-            sim_t0 = t_cum
-            if res.wall_clock_s is not None:
-                t_cum += res.wall_clock_s       # packet-simulated round time
-            else:
-                t_cum += round_wall_clock(
-                    packets_per_client=load.packets_per_client,
-                    download_packets=n_packets(traffic.total_bytes),
-                    rates=rates, profile=flcfg.switch,
-                    local_train_s=flcfg.local_train_s, aligned=load.aligned)
-            # uploads come from the clients that sent this round (the
-            # packet transport reports exact bytes: dropped voters still
-            # spent phase 1); the broadcast reaches all N clients.
-            up_bytes = (res.upload_bytes if res.upload_bytes is not None
-                        else traffic.total_bytes * res.n_active)
-            mb_cum += up_bytes / 1e6 + traffic.total_bytes * n / 1e6
+                res = run.transport.round(u_stack, run.agg_state, k2, t)
+            sim_t0, up_bytes = run.apply(res)
             with probe.span("eval", round=t):
-                model.load_flat(flat)
-                acc_t = accuracy(model, xt, yt)
-            rec = hist.append_round(acc=acc_t, wall_clock=t_cum,
-                                    traffic_mb=mb_cum,
-                                    loss=float(losses.mean()))
+                acc_t = run.evaluate()
+            rec = run.record(acc_t, losses)
             if probe.enabled:
-                _emit_round(probe, t, rec, res, sim_t0, t_cum, up_bytes,
-                            traffic.total_bytes * n)
+                _emit_round(probe, t, rec, res, sim_t0, run.t_cum, up_bytes,
+                            res.traffic.total_bytes * run.n)
             if flcfg.ckpt_path and (t % flcfg.ckpt_every == 0
                                     or t == flcfg.rounds):
                 with probe.span("ckpt", round=t):
-                    save_run_state(flcfg.ckpt_path, flat=flat,
-                                   e_stack=e_stack, key=key,
-                                   agg_state=agg_state, round_idx=t,
-                                   t_cum=t_cum, mb_cum=mb_cum, history=hist)
-    return hist
+                    run.save(t)
+    return run.hist
 
 
 def _emit_round(probe, t: int, rec: RoundRecord, res, sim_t0: float,

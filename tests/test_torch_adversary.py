@@ -574,3 +574,25 @@ def test_attack_grid_defense_at_net_seed_1(grid_seed_1):
     assert ratio["reference"][0] < DEFENSE_FLOOR, ratio
     assert ratio["port"][0] >= SEED_1_FLOOR, ratio
     assert ratio["port"][1] <= ATTACK_CEILING, ratio
+
+
+@pytest.fixture(scope="module")
+def sweep_seed_1():
+    """The port's own sweep of the same three cells at net seed 1: one
+    fleet (the cells share a batch signature)."""
+    from repro_torch.sweep import run_sweep as port_run_sweep
+    from repro_torch.sweep.grids import attack_grid as port_attack_grid
+    cells = [dataclasses.replace(c, net_seed=1) for c in port_attack_grid()
+             if c.name in GRID_CELLS]
+    assert len({c.batch_signature() for c in cells}) == 1
+    return {cr.spec.name: cr.history
+            for cr in port_run_sweep(cells, (0,), device="cpu")}
+
+
+@pytest.mark.parametrize("name", GRID_CELLS)
+def test_port_sweep_equals_port_runs_at_net_seed_1(grid_seed_1, sweep_seed_1,
+                                                   name):
+    """The fleet's history of each attack cell equals the port's
+    sequential ``run_federated`` run of it, bit for bit."""
+    hist, _ = grid_seed_1
+    assert sweep_seed_1[name] == hist[name][1]

@@ -567,3 +567,46 @@ def test_flash_attention_bf16_misaligned_stride_raises(cuda_device):
     fa(q.float(), k.float(), k.float())      # float32 takes any strides
     torch.cuda.synchronize()
     assert fa.launches == before + 1
+
+
+@requires_cuda
+def test_flash_dispatch_needs_declared_positions_on_card(cuda_device,
+                                                         monkeypatch):
+    """Above DENSE_MAX_SEQ the card runs B6, which masks by arange(S) /
+    arange(T): undeclared positions raise (offset ones included, which B6
+    would mask wrongly), while ``forward`` declares its arange and keeps
+    the logits of the same layers run with that declaration spelt out."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tr
+    cfg = get_smoke("qwen3_0p6b")
+    monkeypatch.setattr(A, "DENSE_MAX_SEQ", 128)
+    params = M.init_params(cfg, prng.PRNGKey(0, device=cuda_device),
+                           device=cuda_device)
+    mix = M.cast_params(params, cfg)["group0"][0]["mix"]
+    s = 256
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(2, s, cfg.d_model, device=cuda_device, generator=gen)
+    pos = torch.arange(s, device=cuda_device)
+    fa = flash_attention.flash_attention
+    with torch.no_grad():
+        for positions in (pos, pos + 7):
+            with pytest.raises(NotImplementedError, match="A11"):
+                A.multihead_attention(mix, x, cfg, positions=positions)
+        before = fa.launches
+        A.multihead_attention(mix, x, cfg, positions=pos,
+                              arange_positions=True)
+        assert fa.launches == before + 1
+        tokens = torch.randint(0, cfg.vocab, (2, s), device=cuda_device,
+                               generator=gen)
+        before = fa.launches
+        got, _ = M.forward(params, cfg, {"tokens": tokens})
+        assert fa.launches == before + cfg.n_layers
+        cast = M.cast_params(params, cfg)
+        h = M._embed(cast, cfg, tokens)
+        for i, spec in enumerate(tr.group_plan(cfg)):
+            h = tr.apply_group(cast[f"group{i}"], h, cfg, spec, positions=pos,
+                               arange_positions=True)
+        want = M._head(cast, cfg, h)
+    assert torch.equal(got, want)

@@ -324,3 +324,34 @@ def test_unported_architectures_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             M.init_params(get_smoke(arch), prng.PRNGKey(0, device=CPU),
                           device=CPU)
+
+
+def test_declared_arange_path_agrees_with_blockwise(smoke, monkeypatch):
+    """The branch the card takes above DENSE_MAX_SEQ for positions declared
+    ``arange`` (B6, here its plain version) against the blockwise branch on
+    those positions, at the smoke model's layer 0 (B6's float32 gate, 3e-5;
+    sums in other orders).  On the CPU the declaration changes nothing,
+    and undeclared offset positions run the blockwise branch on them."""
+    cfg, _, _, params = smoke
+    monkeypatch.setattr(A, "DENSE_MAX_SEQ", 128)
+    mix = M.cast_params(params, cfg)["group0"][0]["mix"]
+    s = 256
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (2, s, cfg.d_model)).astype(np.float32))
+    pos = torch.arange(s)
+    with torch.no_grad():
+        blockwise = A.multihead_attention(mix, x, cfg, positions=pos)
+        declared = A.multihead_attention(mix, x, cfg, positions=pos,
+                                         arange_positions=True)
+        assert torch.equal(blockwise, declared)
+        shifted = A.multihead_attention(mix, x, cfg, positions=pos + 7)
+        assert not torch.allclose(shifted, blockwise)
+        # the card's declared branch: flash_attention on the same q, k, v
+        monkeypatch.setattr(
+            A, "_blockwise_attention",
+            lambda q, k, v, qpos, kpos, causal, window, *_: FA.flash_attention(
+                q, k, v, causal=causal, window=window))
+        kernel = A.multihead_attention(mix, x, cfg, positions=pos,
+                                       arange_positions=True)
+    np.testing.assert_allclose(kernel.numpy(), blockwise.numpy(), atol=3e-5,
+                               rtol=3e-5)
