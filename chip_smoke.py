@@ -59,7 +59,9 @@ Phases, each of which raises (and exits non-zero) on failure:
    reference's sharded cell, N = 8, d = 100,007,936 on 8 shards,
    threshold/block and top-k/top-k (the latter bitwise against the
    stream engine), each gated as the stream scale cell, timed (median of
-   3), its phase 1 timed, profiled, its peak above its inputs and outputs
+   3), its phase 1 timed (not profiled: the top-k cell is bitwise the
+   stream scale cell, profiled there), its peak above its inputs and
+   outputs
    and one shard's working set; then the shard, stream and monolithic
    rounds timed at d = 9,994,240;
 9. packet path (``netsim/``, the FediAC round as packet streams through
@@ -159,7 +161,29 @@ Phases, each of which raises (and exits non-zero) on failure:
    16 slots with a 32,768-token cache (``DECODE_32K``'s cache, its batch
    cut) answering 16 requests, timed and profiled; then the prefill and
    both B6 instances at their layers (with SDPA as the library yardstick)
-   timed, the bf16 one also in TFLOP/s on the reference FLOPs.
+   timed, the bf16 one also in TFLOP/s on the reference FLOPs;
+16. zoo path (the rest of the model zoo, ``phase_zoo``): granite-moe-1b
+   whole (24 layers, random weights from ``PRNGKey(0)``, its parameter
+   count the reference's) prefilling 2 x 32,768 tokens through
+   ``make_serve_step`` (two chunks of MoE dispatch per layer; B6's bf16
+   instance once per layer), then a bf16 engine of 16 slots answering 16
+   requests; DeepSeek-V2 at full width cut to 2 layers (the dense layer
+   and one MoE layer of 160 routed top-6 experts and 2 shared; weights
+   from a seeded generator) prefilling 32,768 tokens (B6 at D = 192,
+   Dv = 128, 128 heads, once per MLA layer), then absorbed decode ticks;
+   hymba-1.5b whole (B6 windowed, 25 over 5 heads, beside the SSD) and
+   its ring-cache decode; mamba2-130m whole (no kernel); whisper-tiny
+   whole over 2 x 1,500 synthetic frames and its engine.  For each: the
+   counts zeroed just before the prefill and read just after, B6 against
+   its plain version at each kind of layer it meets (``LAYER_TOL``),
+   finite logits, the prefill's time, peak memory, B6 share and top
+   kernels, B6 timed beside SDPA.  Then each family at 2 layers,
+   S = 4,096 (DeepSeek-V2's routed experts cut to 16 for the CPU), card
+   against CPU: float32 within ``CHECK_TOL`` (B6's float32 instance held
+   to plain; whisper's cross-attention over 1,500 frames through it),
+   bf16 within ``CHECK_TOL_BF16`` without a router, and with one the share
+   of tokens whose expert set differs reported; and a float32 engine
+   whose every request's tokens equal its own greedy decode.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -223,7 +247,12 @@ FLASH_CASES = ((1, 1024, 1024, 4, 2, 64, 64, True, 0),
                (1, 191, 129, 4, 4, 96, 96, False, 0),
                (1, 4097, 4097, 8, 1, 128, 128, True, 0),
                (1, 640, 640, 4, 2, 128, 128, True, 37),
-               (1, 1100, 300, 4, 2, 128, 128, False, 100))
+               (1, 1100, 300, 4, 2, 128, 128, False, 100),
+               # the zoo's layers: hymba (GQA 5, window 2048), MLA at
+               # DeepSeek-V2's 128 heads, whisper's cross-attention
+               (1, 4096, 4096, 25, 5, 64, 64, True, 2048),
+               (1, 2304, 2304, 128, 128, 192, 128, True, 0),
+               (1, 4096, 1500, 6, 6, 64, 64, False, 0))
 #: B6 is held to a tolerance, not bitwise: float32 3e-5 (the reference
 #: test's), bfloat16 2e-2 (test_flash_bf16's), as |a - b| <= tol + tol |b|
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
@@ -239,6 +268,48 @@ CHECK_TOL = 1e-5
 #: the same check in bfloat16 (B6's bf16 instance): the CPU tests' bf16
 #: tolerance (tests/test_torch_models.py), relative to the largest logit
 CHECK_TOL_BF16 = 2e-2
+#: the rest of the model zoo (phase_zoo), each at full width: DeepSeek-V2's
+#: depth cut to its leading dense layer and one MoE layer, the others whole
+ZOO = ("granite_moe_1b", "deepseek_v2_236b", "hymba_1p5b", "mamba2_130m",
+       "whisper_tiny")
+ZOO_DEEPSEEK, ZOO_DEEPSEEK_LAYERS = "deepseek_v2_236b", 2
+#: the reference's parameter counts (jax.eval_shape of its init_params),
+#: DeepSeek-V2's at 2 layers
+ZOO_PARAMS = {"granite_moe_1b": 1_334_628_352, "deepseek_v2_236b": 5_358_679_040,
+              "hymba_1p5b": 1_594_957_344, "mamba2_130m": 128_940_480,
+              "whisper_tiny": 41_158_272}
+#: (batch, sequence) of each timed prefill: PREFILL_32K's sequence at
+#: batch 2 for granite (65,536 tokens: two MoE chunks), batch 1 for the
+#: larger layers; whisper's decoder at its 448-token bound over 1,500 frames
+ZOO_PREFILL = {"granite_moe_1b": (2, PREFILL_SEQ),
+               "deepseek_v2_236b": (1, PREFILL_SEQ),
+               "hymba_1p5b": (1, PREFILL_SEQ), "mamba2_130m": (1, PREFILL_SEQ),
+               "whisper_tiny": (2, 448)}
+#: B6 launches per timed prefill: one per attention layer above
+#: DENSE_MAX_SEQ (whisper's 448 decoder tokens and 1,500 frames stay dense)
+ZOO_B6_LAUNCHES = {"granite_moe_1b": 24, "deepseek_v2_236b": 2,
+                   "hymba_1p5b": 32, "mamba2_130m": 0, "whisper_tiny": 0}
+#: (slots, cache) of the timed engine where a family's decode runs through
+#: one; the others step the decode at DECODE_32K's cache ZOO_DECODE_TICKS
+#: times (DeepSeek absorbed, hymba on its ring, mamba2's state)
+ZOO_ENGINE = {"granite_moe_1b": (16, 4096), "whisper_tiny": (2, 448)}
+ZOO_DECODE_TICKS = 8
+#: the card-vs-CPU check's cuts beyond its depth, for the CPU's time and
+#: memory (DeepSeek-V2: 16 of 160 routed experts, top-6 and 2 shared kept)
+ZOO_CHECK_CUTS = {"deepseek_v2_236b": {"n_experts": 16}}
+#: DeepSeek-V2's check at a shorter sequence, still over DENSE_MAX_SEQ (so
+#: B6 runs), its CPU path's query block halved to divide it: at 4,096 the
+#: CPU took 38-51 s in float32 and 80 s in bfloat16 (PERF.md section 6)
+ZOO_CHECK_SEQ = {"deepseek_v2_236b": (2_304, dict(attn_q_block=1_152))}
+#: B6 launches of the check prefill (2 layers, S = CHECK_SEQ): whisper's
+#: decoder runs self- and cross-attention (T = 1,500) through it
+ZOO_CHECK_B6 = {"granite_moe_1b": 2, "deepseek_v2_236b": 2, "hymba_1p5b": 2,
+                "mamba2_130m": 0, "whisper_tiny": 4}
+#: float32 routing, card vs CPU: a one-ulp difference in a router logit
+#: flips an expert only at a near-tie, so a flip is rare (reported); a
+#: wrong dispatch flips a large share.  With no flip the logits are held to
+#: CHECK_TOL, with one (a token's expert set changed) to CHECK_TOL_BF16
+ZOO_FLIP_MAX_F32 = 1e-3
 
 
 def log(msg: str) -> None:
@@ -1384,8 +1455,8 @@ def phase_shard(card: str) -> dict:
     shards; 3, ragged, for top-k/top-k) and ``shard_compress_stack``
     against the stacked phase-2 compress; (b) the reference's cell at
     SHARD_D on 8 shards, threshold/block and top-k/top-k (the latter
-    bitwise against the stream engine), timed, phase 1 timed, profiled,
-    its peak above inputs and outputs and one shard's working set; (c) the
+    bitwise against the stream engine), timed, phase 1 timed, its peak
+    above inputs and outputs and one shard's working set; (c) the
     shard round beside the stream and monolithic rounds at
     SHARD_TIMING_D."""
     import torch
@@ -1476,11 +1547,11 @@ def phase_shard(card: str) -> dict:
         torch.cuda.synchronize()
         cell["phase1_ms"] = (time.perf_counter() - t0) * 1e3
         del shards
-        t0 = time.perf_counter()
-        rows = device_profile(lambda: fediac.aggregate_round(u, cfg, key),
-                              iters=1, warm=False)
-        cell["profile_s"] = time.perf_counter() - t0
-        busy = sum(r[1] for r in rows)
+        # not profiled: profiling a 1e8 round costs 35-75 s of the
+        # script's time limit (PERF.md section 5 keeps the last readings:
+        # threshold/block idle 30.7%), and the top-k cell is held bitwise
+        # to the stream scale cell, which the stream phase profiles
+
         # one shard's working set: the same round on one shard of width S
         # (what one device of an 8-device mesh holds), above its own
         # inputs and outputs
@@ -1489,10 +1560,7 @@ def phase_shard(card: str) -> dict:
             one, cfg, key, devices=1))
         one_io = (one.numel() * 4 + s * 8) / 2**30
         cell.update({
-            "round_ms": round_ms, "round_ms_all": times, "device_ms": busy,
-            "idle_share": 1.0 - busy / round_ms if rows else None,
-            "device_launches": sum(r[2] for r in rows),
-            "top_kernels": [(nm[:60], ms, c) for nm, ms, c in rows[:6]],
+            "round_ms": round_ms, "round_ms_all": times,
             "peak_gib": peak, "peak_above_inputs_gib": extra,
             "peak_above_inputs_and_outputs_gib": extra - out_gib,
             "one_shard_working_set_gib": one_extra - one_io,
@@ -3452,6 +3520,29 @@ def _greedy(cfg, params, prompt, max_new) -> list:
     return out
 
 
+def _capture_b6(step, keep=lambda calls, q, k, v, kw: not calls):
+    """``step()`` with the models' B6 calls watched: its result, the
+    (q, k, v, kw) of the calls ``keep`` picks as the kernel receives them
+    (by default the first, layer 0's), and the dtype (the kernel instance)
+    of every call."""
+    from repro_torch.models import attention as attn
+    calls, dtypes = [], []
+    real = attn.flash_attention
+
+    def capture(q, k, v, **kw):
+        if keep(calls, q, k, v, kw):
+            calls.append((q, k, v, kw))
+        dtypes.append(str(q.dtype).removeprefix("torch."))
+        return real(q, k, v, **kw)
+
+    attn.flash_attention = capture
+    try:
+        result = step()
+    finally:
+        attn.flash_attention = real
+    return result, calls, dtypes
+
+
 def phase_serve() -> dict:
     """The serve path's main run (the 32k prefill through B6), its checks,
     the card-vs-CPU prefill, the decode engine, and their times."""
@@ -3482,24 +3573,8 @@ def phase_serve() -> dict:
                            device=DEV, generator=gen)
 
     def capture_layer0(step):
-        """``step()`` with the model's B6 calls watched: its result, layer
-        0's (q, k, v, kw) as the kernel receives them, and the dtype (the
-        kernel instance) of every call."""
-        captured, dtypes = [], []
-        real = attn.flash_attention
-
-        def capture(q, k, v, **kw):
-            if not captured:
-                captured.append((q, k, v, kw))
-            dtypes.append(str(q.dtype).removeprefix("torch."))
-            return real(q, k, v, **kw)
-
-        attn.flash_attention = capture
-        try:
-            result = step()
-        finally:
-            attn.flash_attention = real
-        return result, captured[0], dtypes
+        result, calls, dtypes = _capture_b6(step)
+        return result, calls[0], dtypes
 
     # -- main path: one prefill, counts zeroed just before and read just
     # after; every B6 launch is the bf16 (tensor-core) instance
@@ -3705,7 +3780,7 @@ def phase_serve() -> dict:
     # float32 (FFMA over a TMA ring) at the check prefill's layer
     out["b6"] = {
         "bfloat16": time_b6(q, k, v, kw, BF16_OPS_PER_S, out["launches"],
-                            iters=3, graph=dict(launches=5, replays=2)),
+                            graph=dict(launches=5, replays=2)),
         "float32": time_b6(q32, k32, v32, kw32, FP32_OPS_PER_S,
                            out["check_launches"], iters=10,
                            graph=dict(launches=10, replays=3))}
@@ -3719,37 +3794,422 @@ def phase_serve() -> dict:
     return out
 
 
-def time_b6(q, k, v, kw, ops_per_s: float, launches: int, iters: int,
-            graph: dict) -> dict:
-    """B6 at one layer's causal operands (S = T, no window): call and
-    device ms, its plain version's and SDPA's ms, its bound (operations at
-    ``ops_per_s``, the peak for the operands' type, or bytes) and its
-    achieved TFLOP/s on the reference FLOPs."""
+# ---------------------------------------------------------------------------
+# The zoo: MoE, MLA, Mamba-2 SSD, the Hymba hybrid, the Whisper encoder-decoder
+# ---------------------------------------------------------------------------
+
+def _zoo_cfg(arch: str):
+    """The timed model of ``arch``: its full config, DeepSeek-V2's depth cut
+    to ``ZOO_DEEPSEEK_LAYERS``."""
+    from repro_torch.configs import get
+    cfg = get(arch)
+    return cfg.with_(n_layers=ZOO_DEEPSEEK_LAYERS) if arch == ZOO_DEEPSEEK else cfg
+
+
+def _zoo_params(cfg):
+    """The timed model's parameters: ``init_params`` from ``PRNGKey(0)``,
+    except DeepSeek-V2's, laid out on the ``meta`` device and filled from
+    a seeded ``torch.Generator`` at the reference's scales (norms 1, the
+    embedding and head 0.02, every other matrix 1/sqrt(fan-in)): its
+    [160, 5120, 1536] expert leaves would need int64 threefry temporaries
+    of ~10 GB each.  The values do not change the work."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.models import init_params
+    if cfg.name != ZOO_DEEPSEEK:
+        return init_params(cfg, prng.PRNGKey(0, device=DEV)), "init_params"
+    model = init_params(cfg, prng.PRNGKey(0, device="meta"),
+                        device="meta").to_empty(device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() <= 1:
+                p.fill_(1.0)
+            elif name in ("embed", "lm_head"):
+                p.normal_(0.0, 0.02, generator=gen)
+            else:
+                p.normal_(0.0, p.shape[-2] ** -0.5, generator=gen)
+    return model, "seeded torch.Generator fill (see _zoo_params)"
+
+
+def _zoo_batch(cfg, b: int, s: int, seed: int) -> dict:
+    """A prefill batch: random tokens, and for the encoder-decoder
+    ``synth_audio_frames`` (B, source_len, d_model)."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.models.frontends import synth_audio_frames
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), device=DEV,
+                                     generator=gen)}
+    if cfg.is_enc_dec:
+        batch["frames"] = synth_audio_frames(prng.PRNGKey(seed, device=DEV), b,
+                                             cfg.source_len, cfg.d_model)
+    return batch
+
+
+def _keep_kinds(calls, q, k, v, kw) -> bool:
+    """Keep the first B6 call of each (causal, window, T == S) kind: a
+    self-attention layer's and a cross-attention layer's."""
+    kind = (kw.get("causal", True), kw.get("window", 0), k.shape[1] == q.shape[1])
+    return all((c[3].get("causal", True), c[3].get("window", 0),
+                c[1].shape[1] == c[0].shape[1]) != kind for c in calls)
+
+
+def _b6_vs_plain(calls, tol) -> tuple[float, float]:
+    """Each captured B6 call against its plain version within ``tol``: the
+    largest error, and the plain version's ms (CUDA events) summed."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    err, plain_ms = 0.0, 0.0
+    for q, k, v, kw in calls:
+        got = fa.flash_attention(q, k, v, **kw)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms += start.elapsed_time(stop)
+        ok, e = flash_close(got, want, tol)
+        check(ok, f"B6 != plain at q {tuple(q.shape)} k {tuple(k.shape)} "
+              f"v {tuple(v.shape)} {kw} {q.dtype}: {e} (tolerance {tol})")
+        err = max(err, e)
+        del got, want
+    return err, plain_ms
+
+
+def _moe_routes():
+    """Record each MoE dispatch's top-k expert sets (sorted, on the host),
+    recomputed from its router as the dispatch computes them; returns the
+    list and an undo."""
+    import torch
+    from repro_torch.models import moe
+    routes, real = [], moe._moe_core
+
+    def watched(p, xt, cfg):
+        probs = torch.softmax((xt @ p["router"]).float(), dim=-1)
+        top = torch.sort(probs, dim=-1, descending=True, stable=True)[1]
+        routes.append(torch.sort(top[:, :cfg.moe_top_k], dim=-1)[0].cpu())
+        return real(p, xt, cfg)
+
+    moe._moe_core = watched
+    return routes, lambda: setattr(moe, "_moe_core", real)
+
+
+def _zoo_prefill(arch: str) -> dict:
+    """One family's timed model: its prefill (the main path, counts zeroed
+    just before and read just after), B6 against plain at each kind of
+    layer it meets, the prefill's time, peak memory, B6 share and top
+    kernels, then its decode."""
+    import gc
+
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.models import init_caches, param_count
+    from repro_torch.serving import ServingEngine
+    from repro_torch.training.serve import make_serve_step
+    out = {}
+    cfg = _zoo_cfg(arch)
+    b, s = ZOO_PREFILL[arch]
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, out["weights"] = _zoo_params(cfg)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = param_count(params)
+    check(out["params"] == ZOO_PARAMS[arch],
+          f"{arch} has {out['params']} parameters, not {ZOO_PARAMS[arch]}")
+    bundle = make_serve_step(cfg, InputShape("prefill", s, b, "prefill"))
+    batch = _zoo_batch(cfg, b, s, seed=13)
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, calls, dtypes = _capture_b6(lambda: bundle.step(params, batch),
+                                        keep=_keep_kinds)
+    torch.cuda.synchronize()
+    out["prefill_first_ms"] = (time.perf_counter() - t0) * 1e3
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {k: (ZOO_B6_LAUNCHES[arch] if k == "flash_attention" else 0)
+            for k in launches}
+    check(launches == want, f"{arch} prefill launches {launches}, not {want}")
+    dt = str(getattr(torch, cfg.compute_dtype)).removeprefix("torch.")
+    check(dtypes == [dt] * ZOO_B6_LAUNCHES[arch],
+          f"{arch} prefill B6 calls by dtype {dtypes}")
+    check(logits.shape == (b, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{arch} prefill logits {tuple(logits.shape)} not finite / shaped")
+    out["launches"] = launches["flash_attention"]
+    out["prefill_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["next_tokens"] = logits.float().argmax(-1).tolist()
+    out["b6_calls"] = [dict(q=list(q.shape), k=list(k.shape), v=list(v.shape),
+                            **kw) for q, k, v, kw in calls]
+    if calls:
+        out["layer_err_vs_plain"], out["plain_ms"] = _b6_vs_plain(calls,
+                                                                  LAYER_TOL)
+    else:
+        why = ("no attention layer; its SSD runs as torch operations"
+               if cfg.arch_type == "ssm" else "its attention stays dense at "
+               "these lengths (DENSE_MAX_SEQ)")
+        log(f"[zoo] {arch}: prefill {b} x {s} launches no kernel ({why})")
+    # times: the prefill again, then under the profiler
+    t0 = time.perf_counter()
+    bundle.step(params, batch)
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["prefill_tokens_per_s"] = b * s / out["prefill_ms"] * 1e3
+    rows = device_profile(lambda: bundle.step(params, batch), iters=1,
+                          warm=False)
+    busy = sum(r[1] for r in rows)
+    out["prefill_device_ms"] = busy
+    out["prefill_idle_share"] = 1.0 - busy / out["prefill_ms"]
+    out["b6_device_ms"] = sum(r[1] for r in rows if "flash_fwd" in r[0])
+    out["b6_share_of_prefill"] = out["b6_device_ms"] / out["prefill_ms"]
+    out["prefill_top_kernels"] = [(n[:60], ms, c) for n, ms, c in rows[:5]]
+    if calls:
+        q, k, v, kw = calls[0]
+        ops = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+        out["b6"] = time_b6(q, k, v, kw, ops, out["launches"],
+                            plain_ms=out["plain_ms"])
+    del calls, logits
+    log(f"[zoo] {arch} prefill {b} x {s} ({out['weights']}, "
+        f"{out['params']} parameters, init {out['init_s']:.1f} s): "
+        f"{out['prefill_ms']:.1f} ms, {out['prefill_tokens_per_s']:.0f} tok/s, "
+        f"peak {out['prefill_peak_mem_gib']:.2f} GiB, B6 {out['launches']} "
+        f"launches, {100 * out['b6_share_of_prefill']:.1f}% of the prefill, "
+        f"idle {100 * out['prefill_idle_share']:.1f}%; top kernels "
+        f"{[(n[:40], round(ms, 2)) for n, ms, _ in out['prefill_top_kernels']]}")
+
+    # decode on the timed model
+    _free_card()
+    if arch in ZOO_ENGINE:
+        slots, cache = ZOO_ENGINE[arch]
+        prompts = _prompts(cfg.vocab, slots)
+        eng = ServingEngine(cfg, params, max_batch=slots, cache_len=cache)
+        reqs, ticks, secs = _engine_run(eng, prompts)
+        check(all(len(r.out) == m for r, (_, m) in zip(reqs, prompts)),
+              f"{arch} engine left a request unanswered")
+        out["decode"] = dict(engine_slots=slots, cache=cache, ticks=ticks,
+                             tick_ms=secs * 1e3 / ticks)
+        del eng
+        gc.collect()
+    else:
+        # a few ticks of the decode step at DECODE_32K's cache, batch 1
+        # (DeepSeek: absorbed MLA over the latent cache; hymba: its ring
+        # cache of the window beside the SSM state; mamba2: the state only)
+        shape = InputShape("decode_32k", PREFILL_SEQ, 1, "decode")
+        step = make_serve_step(cfg, shape)
+        caches = init_caches(cfg, 1, step.cache_len)
+        # (the position a device tensor, as the engine passes it: a host
+        # int would be copied to the card once per layer)
+        tok = torch.zeros(1, 1, dtype=torch.int64, device=DEV)
+        pos = torch.arange(PREFILL_SEQ, PREFILL_SEQ + ZOO_DECODE_TICKS, device=DEV)
+        lg = None
+        for t in range(ZOO_DECODE_TICKS):
+            lg, caches = step.step(params, caches, tok, pos[t])
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(lg.float()).all()), f"{arch} decode not finite")
+        out["decode"] = dict(
+            ring=step.ring, cache=step.cache_len,
+            absorbed=bool(cfg.mla_absorbed) if cfg.attn_kind == "mla" else None,
+            tick_ms=cuda_ms(lambda: step.step(params, caches, tok, pos[0]),
+                            iters=ZOO_DECODE_TICKS, warmup=0))
+        del caches
+    log(f"[zoo] {arch} decode: {out['decode']}")
+    del params, bundle, batch
+    _free_card()
+    return out
+
+
+def _zoo_check(arch: str) -> dict:
+    """One family at ``CHECK_LAYERS`` layers, full width (DeepSeek's
+    experts and sequence cut for the CPU's sake), S = CHECK_SEQ: the card's
+    prefill
+    against the CPU's in float32 (B6's float32 instance held to plain at
+    each kind of layer) and in bfloat16 (gated without a router; with one,
+    the share of tokens routed to another expert set is reported), then a
+    float32 ``ServingEngine``'s tokens against each request's own greedy
+    decode."""
+    import copy
+
+    import torch
+    from repro_torch.configs import InputShape
+    from repro_torch.core import prng
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServingEngine
+    from repro_torch.training.serve import make_serve_step
+    out = {}
+    cut = dict(n_layers=CHECK_LAYERS, **ZOO_CHECK_CUTS.get(arch, {}))
+    if arch == "whisper_tiny":
+        cut["encoder_layers"] = CHECK_LAYERS
+    cfg = _zoo_cfg(arch).with_(compute_dtype="float32", param_dtype="float32",
+                               **cut)
+    out["cuts"] = cut
+    _free_card()
+    params = init_params(cfg, prng.PRNGKey(0, device=DEV))
+    cpu = copy.deepcopy(params).cpu()
+    seq, blocks = ZOO_CHECK_SEQ.get(arch, (CHECK_SEQ, {}))
+    cfg = cfg.with_(**blocks)
+    if seq != CHECK_SEQ:
+        out["cuts"]["seq"] = seq
+    for dt in ("float32", "bfloat16"):
+        c = cfg.with_(compute_dtype=dt)
+        shape = InputShape("prefill_check", seq, 1, "prefill")
+        batch = _zoo_batch(cfg, 1, seq, seed=17)
+        batch_cpu = {k: v.cpu() for k, v in batch.items()}
+        routes = None
+        if c.n_experts:
+            routes, undo = _moe_routes()
+        try:
+            t0 = time.perf_counter()
+            lg, calls, dtypes = _capture_b6(
+                lambda: make_serve_step(c, shape).step(params, batch),
+                keep=_keep_kinds)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            check(dtypes == [dt] * len(dtypes)
+                  and len(dtypes) == ZOO_CHECK_B6[arch],
+                  f"{arch} check prefill {dt}: B6 calls {dtypes}, want "
+                  f"{ZOO_CHECK_B6[arch]}")
+            err = None
+            if calls:
+                err, _ = _b6_vs_plain(calls, None)
+            n_card = len(routes) if routes is not None else 0
+            t0 = time.perf_counter()
+            lc = make_serve_step(c, shape, device="cpu").step(cpu, batch_cpu)
+            cpu_s = time.perf_counter() - t0
+        finally:
+            if routes is not None:
+                undo()
+        a, b = lg.float().cpu(), lc.float()
+        rel = float((a - b).abs().max() / b.abs().max())
+        res = dict(seq=seq, rel_err=rel,
+                   same_argmax=bool(torch.equal(a.argmax(-1), b.argmax(-1))),
+                   b6_launches=len(dtypes), b6_err_vs_plain=err,
+                   b6_shapes=[[list(q.shape), list(k.shape), list(v.shape),
+                               kw] for q, k, v, kw in calls],
+                   card_s=card_s, cpu_s=cpu_s)
+        if routes is not None:
+            card_r, cpu_r = routes[:n_card], routes[n_card:]
+            check(len(card_r) == len(cpu_r) > 0, f"{arch}: routes not recorded")
+            flipped = [float((x != y).any(-1).float().mean())
+                       for x, y in zip(card_r, cpu_r)]
+            res["routing_flip_share_by_layer"] = flipped
+        if dt == "float32":
+            flips = max(res.get("routing_flip_share_by_layer", [0.0]))
+            check(flips <= ZOO_FLIP_MAX_F32, f"{arch} f32 routing differs card "
+                  f"vs CPU: {res.get('routing_flip_share_by_layer')}")
+            tol = CHECK_TOL if flips == 0.0 else CHECK_TOL_BF16
+            check(rel <= tol and (res["same_argmax"] or flips > 0.0),
+                  f"{arch} card vs CPU f32 prefill: rel err {rel} (tolerance "
+                  f"{tol}), same argmax {res['same_argmax']}")
+        elif not c.n_experts:
+            check(rel <= CHECK_TOL_BF16,
+                  f"{arch} card vs CPU bf16 prefill: rel err {rel} > "
+                  f"{CHECK_TOL_BF16}")
+        out[dt] = res
+        log(f"[zoo check] {arch} {CHECK_LAYERS} layers S={seq} {dt}: "
+            f"rel err {rel:.3g}, B6 {len(dtypes)} launches (err vs plain "
+            f"{err}), routing flips {res.get('routing_flip_share_by_layer')}"
+            f" (card {card_s:.1f} s, CPU {cpu_s:.1f} s)")
+        del lg, calls
+    del cpu
+    # the float32 engine on the card: each request's tokens its own greedy
+    # decode
+    prompts = _prompts(cfg.vocab)
+    eng = ServingEngine(cfg, params, max_batch=DECODE_SLOTS,
+                        cache_len=DECODE_CACHE)
+    reqs, ticks, secs = _engine_run(eng, prompts)
+    for r, (p, m) in zip(reqs, prompts):
+        check(len(r.out) == m, f"{arch} request {r.uid} got {len(r.out)} of {m}")
+        alone = _greedy(cfg, params, p, m)
+        check(r.out == alone, f"{arch} request {r.uid}: engine {r.out} != its "
+              f"own greedy decode {alone}")
+    out["engine_f32"] = dict(requests=len(reqs), ticks=ticks,
+                             tick_ms=secs * 1e3 / ticks)
+    log(f"[zoo check] {arch} engine f32: {len(reqs)} requests on "
+        f"{DECODE_SLOTS} slots, {ticks} ticks, tokens equal to independent "
+        "decode")
+    del eng, params
+    _free_card()
+    return out
+
+
+def phase_zoo() -> dict:
+    """The rest of the model zoo on the card: each family's timed model
+    (its prefill the main path of this phase), its card-vs-CPU check and
+    its float32 engine."""
+    out = {"prefill": {}, "check": {}, "phase_s": {}}
+    for arch in ZOO:
+        t0 = time.perf_counter()
+        out["prefill"][arch] = _zoo_prefill(arch)
+        out["check"][arch] = _zoo_check(arch)
+        out["phase_s"][arch] = time.perf_counter() - t0
+    out["launches"] = sum(p["launches"] for p in out["prefill"].values())
+    log("[zoo] " + json.dumps(out))
+    return out
+
+
+def time_b6(q, k, v, kw, ops_per_s: float, launches: int, *, iters: int = 3,
+            graph: dict | None = None, plain_ms: float | None = None) -> dict:
+    """B6 at one layer's operands, any mask: call ms (CUDA events over
+    ``iters`` calls) and device ms (a replayed CUDA graph), its plain
+    version's ms (measured here unless the caller measured it), its bound
+    (operations at ``ops_per_s``, the peak for the operands' type, from
+    this call's visible (q, k) pairs, causal and window counted; or
+    bytes), its achieved TFLOP/s on the reference FLOPs, and SDPA's ms
+    where one call computes the same function (a boolean mask for a
+    window, with the KV heads repeated there, as the masked kernel takes
+    no grouped heads; null, with the reason, where SDPA refuses the
+    shapes)."""
+    import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     b, s, h, d = q.shape
-    hk, dv = k.shape[2], v.shape[3]
-    check(kw.get("causal", True) and not kw.get("window", 0)
-          and k.shape[1] == s, f"B6 timed at a causal S = T layer, got {kw}")
-    # S (S + 1) / 2 visible (q, k) pairs per (batch, head), 2 D + 2 Dv
-    # FLOPs each
-    fl = b * h * s * (s + 1) // 2 * 2 * (d + dv)
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    t, hk, dv = k.shape[1], k.shape[2], v.shape[3]
+    causal, window = kw.get("causal", True), kw.get("window", 0)
+    i = torch.arange(s, dtype=torch.int64)
+    hi = torch.clamp(i + 1, max=t) if causal else torch.full_like(i, t)
+    lo = torch.clamp(i - window + 1, min=0) if window else torch.zeros_like(i)
+    pairs = int((hi - lo).clamp(min=0).sum())
+    # 2 D + 2 Dv FLOPs per visible pair
+    fl = b * h * pairs * 2 * (d + dv)
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v)) \
+        + b * s * h * dv * q.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = fl / ops_per_s * 1e3
     run = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+    if plain_ms is None:
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
+                           iters=1, warmup=1)
     out = dict(launches=launches, dtype=str(q.dtype).removeprefix("torch."),
                ms=cuda_ms(run, iters=iters, warmup=1),
-               device_ms=graph_ms(run, **graph),
-               plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw),
-                                iters=1, warmup=1),
-               bound_ms=max(t_bytes, t_ops),
+               device_ms=graph_ms(run, **(graph or dict(launches=3, replays=2))),
+               plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
-               flops=fl, bytes=nbytes, shape=[b, s, h, hk, d, dv])
+               flops=fl, bytes=nbytes, visible_pairs_per_head=pairs,
+               causal=causal, window=window, shape=[b, s, t, h, hk, d, dv])
     out["tflops"] = fl / out["device_ms"] / 1e9
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    out["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
+    try:
+        if window:
+            kt, vt = (x.repeat_interleave(h // hk, dim=1) for x in (kt, vt))
+            j = torch.arange(t, device=q.device)
+            ii = torch.arange(s, device=q.device)[:, None]
+            mask = (j[None, :] > ii - window) & ((j[None, :] <= ii) if causal
+                                                 else True)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=causal, enable_gqa=hk != h)
+        out["library_ms"] = cuda_ms(lib, iters=iters, warmup=1)
+    except (RuntimeError, torch.OutOfMemoryError) as e:
+        out["library_ms"] = None
+        out["library_refused"] = str(e).splitlines()[0][:200]
+        _free_card()
     return out
 
 
@@ -3804,6 +4264,7 @@ def main() -> int:
     timing = timed("timing", phase_timing, u_stack, key)
     timing.update(timed("wire_timing", phase_wire_timing))
     serve = timed("serve", phase_serve)
+    zoo = timed("zoo", phase_zoo)
 
     quant_src = "src/repro_torch/kernels/csrc/quant.cu"
     votes_src = "src/repro_torch/kernels/csrc/votes.cu"
@@ -3902,9 +4363,10 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:32",
-        # the main path is the bf16 instance: the 32k prefill's launches,
-        # one per layer, and its times at layer 0
-        "launches": serve["launches"], "on_path": True,
+        # the main path is the bf16 instance: the 32k prefills' launches,
+        # one per attention layer (Qwen3-0.6B's, then the zoo's), and its
+        # times at Qwen3-0.6B's layer 0
+        "launches": serve["launches"] + zoo["launches"], "on_path": True,
         "max_abs_err": serve["layer_err_vs_plain"], "bitwise": False,
         "tolerance": {"abs": LAYER_TOL[0], "rel": LAYER_TOL[1]},
         "max_abs_err_small_shapes": flash_err,
@@ -3919,7 +4381,24 @@ def main() -> int:
             {"instance": "float32, FFMA (SIMT) over a TMA ring",
              "on": "the check prefill",
              "max_abs_err": serve["check_layer_err_vs_plain"],
-             **{k: b6["float32"][k] for k in instance_keys}}]})
+             **{k: b6["float32"][k] for k in instance_keys}}],
+        # the zoo's prefills: launches and times at each model's layer 0
+        # (held to plain within LAYER_TOL there), and the check prefills'
+        # launches by shape (held to plain within FLASH_TOL)
+        "zoo_at": [
+            {"model": arch, "launches": z["launches"],
+             "max_abs_err": z["layer_err_vs_plain"],
+             **{k: z["b6"][k] for k in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms",
+                                        "tflops", "shape", "causal", "window",
+                                        "dtype")}}
+            for arch, z in zoo["prefill"].items() if "b6" in z],
+        "zoo_check_launches": {
+            f"{arch} {dt}": [c[dt]["b6_launches"], c[dt]["b6_shapes"]]
+            for arch, c in zoo["check"].items()
+            for dt in ("float32", "bfloat16") if c[dt]["b6_launches"]}})
+    for z in zoo["prefill"].values():
+        z.pop("b6", None)
     serve = {k: v for k, v in serve.items() if k != "b6"}
     timed = ("gather_quant", "gather_quant_allreduce", "gather_quant_fl",
              "stoch_quant", "vote_pack", "pack", "unpack", "popcount_accum")
@@ -3933,6 +4412,7 @@ def main() -> int:
                "allreduce": allreduce,
                "nccl": nccl,
                "serve": serve,
+               "zoo": zoo,
                **{k: v for k, v in timing.items() if k not in timed}}
     log("[summary] " + json.dumps(summary))
     print(json.dumps({"summary": summary}))

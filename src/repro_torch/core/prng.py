@@ -90,7 +90,11 @@ def _hash_counts(key: torch.Tensor, shape):
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split``: ``(..., 2)`` keys -> ``(..., num, 2)``."""
+    """``jax.random.split``: ``(..., 2)`` keys -> ``(..., num, 2)`` (on the
+    ``meta`` device, only the shape)."""
+    if key.device.type == "meta":
+        return torch.empty((*key.shape[:-1], num, 2), dtype=torch.int64,
+                           device="meta")
     b1, b2 = _hash_counts(key, (num,))
     return torch.stack([b1, b2], dim=-1)
 
@@ -178,7 +182,11 @@ def _erf_inv(x: torch.Tensor) -> torch.Tensor:
 
 
 def normal(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.normal(key, shape, float32)``."""
+    """``jax.random.normal(key, shape, float32)`` (on the ``meta`` device,
+    only the shape: a model laid out there draws nothing)."""
+    if key.device.type == "meta":
+        return torch.empty((*key.shape[:-1], *shape), dtype=torch.float32,
+                           device="meta")
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     u = uniform(key, shape, lo, 1.0)
     return _erf_inv(u) * float(np.float32(np.sqrt(2)))

@@ -150,6 +150,29 @@ def _blockwise_attention(q, k, v, qpos, kpos, causal, window, scale,
     return out
 
 
+def _flash_or_raise(q, k, v, causal: bool, window: int, arange_positions: bool,
+                    *, cross: bool) -> torch.Tensor:
+    """The card's blockwise branch: B6, whose mask reads the positions
+    ``arange(S)`` / ``arange(T)``.  It runs where those are the positions
+    (declared by the caller) or where the mask reads no position at all:
+    non-causal, unwindowed attention masks nothing but key validity, and B6
+    at a ragged T computes exactly the reference's padded blockwise result
+    (cross-attention over the encoder's frames).  Anything else raises."""
+    positions_free = not causal and window == 0
+    if cross and not positions_free:
+        raise NotImplementedError(
+            "cross-attention on the card above DENSE_MAX_SEQ runs B6 only "
+            "without a causal mask or a window (ROADMAP queue A: key "
+            "positions for B6)")
+    if not (arange_positions or positions_free):
+        raise NotImplementedError(
+            "flash_attention masks by positions arange(S) / arange(T) "
+            "only; attention over other positions above DENSE_MAX_SEQ "
+            "on the card needs the kernel to take key positions "
+            "(ROADMAP queue A11)")
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
 def multihead_attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tensor,
                         kv_x: torch.Tensor | None = None, causal: bool = True,
                         kv_positions: torch.Tensor | None = None,
@@ -160,11 +183,13 @@ def multihead_attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tenso
     positions ``arange(S)`` / ``arange(T)``, as the reference's Pallas
     kernel does.  So it runs only for a caller that declares its
     ``positions`` (and ``kv_positions``) to be those with
-    ``arange_positions=True``, as ``forward`` does; any other call on the
-    card above ``DENSE_MAX_SEQ`` raises.  The flag is taken on trust: the
-    positions are never read back from the card.  The dense branch and
-    the CPU's blockwise branch mask by the positions given, flag or no
-    flag."""
+    ``arange_positions=True``, as ``forward`` does for self-attention, or
+    for a mask that reads no position (non-causal, no window: the
+    encoder's self-attention and the decoder's cross-attention); any
+    other call on the card above ``DENSE_MAX_SEQ`` raises
+    (:func:`_flash_or_raise`).  The flag is taken on trust: the positions
+    are never read back from the card.  The dense branch and the CPU's
+    blockwise branch mask by the positions given, flag or no flag."""
     b, s, d = x.shape
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     src = x if kv_x is None else kv_x
@@ -184,17 +209,8 @@ def multihead_attention(p: dict, x: torch.Tensor, cfg, *, positions: torch.Tenso
     if s <= DENSE_MAX_SEQ and t <= DENSE_MAX_SEQ:
         out = _dense_attention(q, k, v, positions, kv_positions, causal, window, scale)
     elif x.device.type == "cuda":
-        if kv_x is not None:
-            raise NotImplementedError(
-                "cross-attention over padded encoder positions has no kernel "
-                "yet (ROADMAP queue A11: the encoder-decoder slice)")
-        if not arange_positions:
-            raise NotImplementedError(
-                "flash_attention masks by positions arange(S) / arange(T) "
-                "only; attention over other positions above DENSE_MAX_SEQ "
-                "on the card needs the kernel to take key positions "
-                "(ROADMAP queue A11)")
-        out = flash_attention(q, k, v, causal=causal, window=window)
+        out = _flash_or_raise(q, k, v, causal, window, arange_positions,
+                              cross=kv_x is not None)
     else:
         out = _blockwise_attention(q, k, v, positions, kv_positions, causal,
                                    window, scale, cfg.attn_q_block,

@@ -17,10 +17,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core import prng
+from repro_torch.core import prng, xla_math
 
 __all__ = ["rms_norm", "init_rms", "dense_init", "activation", "rope_freqs",
-           "apply_rope", "MLP", "init_mlp", "apply_mlp"]
+           "apply_rope", "sinusoidal_positions", "MLP", "init_mlp",
+           "apply_mlp"]
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -84,6 +85,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (S, d) in float32.  The
+    reference's ``10_000.0 ** x`` is XLA's ``pow`` (glibc's ``powf``),
+    replayed by :func:`repro_torch.core.xla_math.pow`, so the inverse
+    frequencies are the reference's bits; ``sin``/``cos`` differ by ulps."""
+    device = torch.device("cpu") if device is None else torch.device(device)
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    e = torch.arange(0, d, 2, dtype=torch.float32, device=device)
+    e = e / torch.full_like(e, d)         # tensor / tensor: a true division
+    inv = torch.ones_like(e) / xla_math.pow(torch.full_like(e, 10_000.0), e)
+    ang = pos * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,16 @@
-"""Public model API: init / forward / decode for the dense decoder.
+"""Public model API: init / forward / decode for every ArchConfig.
 
 Mirrors the reference's ``models/model.py``.  ``init_params`` returns a
 :class:`Model`, an ``nn.Module`` whose ``nn.Parameter``s sit where the
 reference's parameter tree puts its leaves (``embed``, ``final_norm``,
-``group0[i].mix.wq``, ...), in the reference's ``(in, out)`` layout.
-``forward`` and ``decode_step`` first make a nested dict of the
-parameters cast to the compute dtype (:func:`cast_params`), as the
-reference's do, and run the functional blocks on it.
+``group0[i].mix.wq``, ``group1[i].ffn.we_g``, ``enc_group0[i].mix.wq``,
+...), in the reference's ``(in, out)`` layout.  ``forward`` and
+``decode_step`` first make a nested dict of the parameters cast to the
+compute dtype (:func:`cast_params`), as the reference's do, and run the
+functional blocks on it.
 
-``batch`` dict convention (prefill): ``{"tokens": (B, S) int}``.
+``batch`` dict convention (prefill): ``{"tokens": (B, S) int}``, plus
+``"frames"`` (B, source_len, d_model) float for the encoder-decoder.
 """
 
 from __future__ import annotations
@@ -21,39 +23,36 @@ from repro_torch import resolve_device
 from repro_torch.core import prng
 
 from . import transformer as tr
-from .attention import Attention
-from .layers import MLP, dense_init, init_rms, rms_norm
+from .layers import dense_init, init_rms, rms_norm, sinusoidal_positions
 
 __all__ = ["Model", "init_params", "param_count", "cast_params", "forward",
-           "init_caches", "decode_step", "params_from_jax"]
+           "init_caches", "decode_step", "jax_leaf", "params_from_jax"]
 
 
 class Model(nn.Module):
     """``embed`` (vocab, d), ``final_norm`` (d,), ``group<i>`` (a
     ``ModuleList`` of blocks per group of :func:`~.transformer.group_plan`),
-    and ``lm_head`` (d, vocab) when the embeddings are not tied."""
+    ``lm_head`` (d, vocab) when the embeddings are not tied, and for the
+    encoder-decoder ``enc_group0`` (the encoder's blocks) and ``enc_norm``."""
 
-    def __init__(self, embed, final_norm, groups, lm_head=None):
+    def __init__(self, embed, final_norm, groups, lm_head=None, *,
+                 enc_group0=None, enc_norm=None):
         super().__init__()
         self.embed, self.final_norm = embed, final_norm
         if lm_head is not None:
             self.lm_head = lm_head
         for i, g in enumerate(groups):
             self.add_module(f"group{i}", g)
-
-
-def _require_decoder_only(cfg) -> None:
-    if cfg.is_enc_dec:
-        raise NotImplementedError("the encoder-decoder is not ported yet "
-                                  "(ROADMAP queue A11)")
+        if enc_group0 is not None:
+            self.enc_group0, self.enc_norm = enc_group0, enc_norm
 
 
 def init_params(cfg, key: torch.Tensor, device=None) -> Model:
     """The reference's ``init_params(cfg, key)`` from the same threefry key
     tree (``split(key, 8)``, then per group ``split(., n_layers)`` and each
     block's splits), so the same key gives the same weights; on ``device``
-    (the card unless told otherwise)."""
-    _require_decoder_only(cfg)
+    (the card unless told otherwise; ``"meta"`` gives the module's shapes
+    and dtypes without drawing anything)."""
     key = key.to(resolve_device(device))
     dt = getattr(torch, cfg.param_dtype)
     ks = prng.split(key, 8)
@@ -64,7 +63,12 @@ def init_params(cfg, key: torch.Tensor, device=None) -> Model:
         lm_head = dense_init(ks[1], cfg.d_model, cfg.vocab, dt, scale=0.02)
     groups = [tr.init_group(ks[2 + i], cfg, spec)
               for i, spec in enumerate(tr.group_plan(cfg))]
-    return Model(embed, init_rms(cfg.d_model, dt, key.device), groups, lm_head)
+    enc = {}
+    if cfg.is_enc_dec:
+        enc = dict(enc_group0=tr.init_group(ks[6], cfg, tr.encoder_plan(cfg)[0]),
+                   enc_norm=init_rms(cfg.d_model, dt, key.device))
+    return Model(embed, init_rms(cfg.d_model, dt, key.device), groups, lm_head,
+                 **enc)
 
 
 def param_count(params: nn.Module) -> int:
@@ -104,23 +108,38 @@ def _head(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     return x @ head.to(x.dtype)
 
 
+def _encode(params: dict, cfg, frames: torch.Tensor) -> torch.Tensor:
+    x = frames.to(getattr(torch, cfg.compute_dtype))
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(x.dtype)[None]
+    pos = torch.arange(x.shape[1], device=x.device)
+    x, _ = tr.apply_group(params["enc_group0"], x, cfg, tr.encoder_plan(cfg)[0],
+                          positions=pos, arange_positions=True)
+    return rms_norm(x, params["enc_norm"], cfg.rms_eps)
+
+
 def forward(params: Model, cfg, batch: dict, *, last_only: bool = False):
-    """Full-sequence forward.  Returns (logits (B, S, V), aux_loss).
+    """Full-sequence forward.  Returns (logits (B, S, V), aux_loss), the
+    aux loss the MoE layers' summed (0 without experts).
 
     ``last_only=True`` computes logits for the final position only (prefill
     serving): at 32k x 152k-vocab the full logits tensor is 20 GB in f32."""
-    _require_decoder_only(cfg)
     params = cast_params(params, cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = _embed(params, cfg, tokens)
     pos = torch.arange(s, device=tokens.device)
+    enc_out, enc_pos = None, None
+    if cfg.is_enc_dec:
+        enc_out = _encode(params, cfg, batch["frames"])
+        enc_pos = torch.arange(enc_out.shape[1], device=enc_out.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(tr.group_plan(cfg)):
-        x = tr.apply_group(params[f"group{i}"], x, cfg, spec, positions=pos,
-                           arange_positions=True)
+        x, aux_g = tr.apply_group(params[f"group{i}"], x, cfg, spec, positions=pos,
+                                  arange_positions=True, enc_out=enc_out,
+                                  enc_positions=enc_pos)
+        aux = aux + aux_g
     if last_only:
         x = x[:, -1:, :]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(params, cfg, x), aux
 
 
@@ -132,7 +151,6 @@ def init_caches(cfg, batch: int, cache_len: int, dtype=None, device=None) -> dic
     """Zeroed KV caches per group, stacked over the group's layers, in the
     compute dtype unless given; on ``device`` (the card unless told
     otherwise)."""
-    _require_decoder_only(cfg)
     device = resolve_device(device)
     dtype = getattr(torch, cfg.compute_dtype) if dtype is None else dtype
     return {f"group{i}": tr.init_block_cache(cfg, spec, batch, cache_len, dtype,
@@ -145,7 +163,6 @@ def decode_step(params: Model, cfg, token: torch.Tensor, caches: dict, pos, *,
     """One-token decode: token (B, 1) int, pos a scalar or (B,) positions.
 
     Returns (logits (B, 1, V), caches); the caches are updated in place."""
-    _require_decoder_only(cfg)
     params = cast_params(params, cfg)
     x = _embed(params, cfg, token)
     for i, spec in enumerate(tr.group_plan(cfg)):
@@ -159,35 +176,33 @@ def decode_step(params: Model, cfg, token: torch.Tensor, caches: dict, pos, *,
 # weights carried across from the reference
 # ---------------------------------------------------------------------------
 
+def jax_leaf(np_params: dict, name: str) -> np.ndarray:
+    """The reference's leaf (numpy, one layer of a stacked group leaf) for
+    the port's parameter ``name``: ``group1.0.ffn.we_g`` is
+    ``np_params["group1"]["ffn"]["we_g"][0]``."""
+    head, *rest = name.split(".")
+    stacked = head.startswith(("group", "enc_group"))
+    layer = int(rest.pop(0)) if stacked else None
+    leaf = np_params[head]
+    for part in rest:
+        leaf = leaf[part]
+    return np.asarray(leaf)[layer] if stacked else np.asarray(leaf)
+
+
 def params_from_jax(np_params: dict, cfg, device=None) -> Model:
     """The reference's parameter tree (numpy arrays; each group leaf stacked
     over layers on axis 0) as the port's model, on ``device`` (the card
-    unless told otherwise)."""
-    _require_decoder_only(cfg)
+    unless told otherwise): the module is laid out on the ``meta`` device
+    by :func:`init_params` and each parameter is filled from its leaf
+    (:func:`jax_leaf`)."""
     device = resolve_device(device)
-    dt = getattr(torch, cfg.param_dtype)
-
-    def par(a) -> nn.Parameter:
-        return nn.Parameter(torch.tensor(np.asarray(a, np.float32), dtype=dt,
-                                         device=device))
-
-    groups = []
-    for i, spec in enumerate(tr.group_plan(cfg)):
-        tr._require_ported(spec)
-        g = np_params[f"group{i}"]
-        blocks = []
-        for j in range(spec.n_layers):
-            mix = g["mix"]
-            norms = ((par(mix["q_norm"][j]), par(mix["k_norm"][j]))
-                     if cfg.qk_norm else ())
-            attn = Attention(*(par(mix[n][j]) for n in ("wq", "wk", "wv", "wo")),
-                             *norms)
-            if spec.ffn == "none":
-                blocks.append(tr.Block(par(g["ln1"][j]), attn))
-                continue
-            ffn = MLP(*(par(g["ffn"][n][j]) for n in ("wg", "wu", "wd")))
-            blocks.append(tr.Block(par(g["ln1"][j]), attn, par(g["ln2"][j]), ffn))
-        groups.append(nn.ModuleList(blocks))
-    lm_head = None if cfg.tie_embeddings else par(np_params["lm_head"])
-    return Model(par(np_params["embed"]), par(np_params["final_norm"]), groups,
-                 lm_head)
+    model = init_params(cfg, prng.PRNGKey(0, device="meta"), device="meta")
+    model = model.to_empty(device=device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = jax_leaf(np_params, name)
+            if tuple(p.shape) != leaf.shape:
+                raise ValueError(f"{name}: the reference's leaf is "
+                                 f"{leaf.shape}, the port's {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(leaf, np.float32)))
+    return model

@@ -5,8 +5,8 @@ Mirrors the reference's ``training/serve.py`` on one device.  A
 the last position's logits; a ``decode`` shape's step is one token against
 a KV cache of :func:`cache_len_for` (a ring buffer for long or windowed
 decode).  The reference's mesh, ``param_specs`` and ``cache_specs`` come
-with the multi-card slice (ROADMAP "Next").  Both steps run without
-autograd.
+with ``models/shardings.py`` (ROADMAP queue A 1, after training on the
+zoo).  Both steps run without autograd.
 """
 
 from __future__ import annotations
@@ -40,15 +40,17 @@ def make_serve_step(cfg, shape, device=None) -> ServeBundle:
     """The serve step of ``shape`` (an :class:`~repro_torch.configs.InputShape`)
     on ``device`` (the card unless told otherwise).
 
-    prefill: ``step(params, {"tokens": (B, S)}) -> logits (B, V)``;
-    decode: ``step(params, caches, token (B, 1), pos) -> (logits, caches)``.
-    Token inputs are moved to the bundle's device.
+    prefill: ``step(params, {"tokens": (B, S)}) -> logits (B, V)``, with
+    ``"frames"`` (B, source_len, d_model) beside the tokens for the
+    encoder-decoder; decode: ``step(params, caches, token (B, 1), pos) ->
+    (logits, caches)``.  Every input (tokens and frames) is moved to the
+    bundle's device.
     """
     device = resolve_device(device)
     if shape.kind == "prefill":
         @torch.no_grad()
         def step(params, batch_d):
-            batch_d = {k: torch.as_tensor(v, device=device)
+            batch_d = {k: torch.as_tensor(v, device=device)     # tokens, frames
                        for k, v in batch_d.items()}
             logits, _ = forward(params, cfg, batch_d, last_only=True)
             return logits[:, -1, :]

@@ -10,6 +10,8 @@ on a GPU host that has no JAX, without the repository's conftest:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -481,6 +483,9 @@ def _close(got, want, dtype):
     (2, 4097, 4097, 8, 1, 128, 128, True, 0),     # GQA 8, one row past 4,096
     (1, 640, 640, 4, 2, 128, 128, True, 37),      # window ends inside a tile
     (1, 1100, 300, 4, 2, 128, 128, False, 100),   # rows 399.. see no key
+    (1, 4096, 4096, 25, 5, 64, 64, True, 2048),   # hymba: GQA 5, window 2048
+    (1, 2304, 2304, 128, 128, 192, 128, True, 0),  # MLA at DeepSeek's 128 heads
+    (1, 4096, 1500, 6, 6, 64, 64, False, 0),      # whisper's cross-attention
 ])
 def test_flash_attention_matches_plain_on_card(cuda_device, dtype, b, s, t, h,
                                                hk, d, dv, causal, window):
@@ -606,7 +611,51 @@ def test_flash_dispatch_needs_declared_positions_on_card(cuda_device,
         cast = M.cast_params(params, cfg)
         h = M._embed(cast, cfg, tokens)
         for i, spec in enumerate(tr.group_plan(cfg)):
-            h = tr.apply_group(cast[f"group{i}"], h, cfg, spec, positions=pos,
-                               arange_positions=True)
+            h, _ = tr.apply_group(cast[f"group{i}"], h, cfg, spec,
+                                  positions=pos, arange_positions=True)
         want = M._head(cast, cfg, h)
     assert torch.equal(got, want)
+
+
+@requires_cuda
+@pytest.mark.parametrize("arch,launches", [
+    ("granite_moe_1b", 2), ("deepseek_v2_236b", 2), ("hymba_1p5b", 2),
+    ("mamba2_130m", 0), ("whisper_tiny", 6)])
+def test_zoo_forward_and_decode_card_match_cpu(cuda_device, monkeypatch, arch,
+                                               launches):
+    """Each family's smoke model on the card against the CPU, float32: the
+    prefill above a patched DENSE_MAX_SEQ (B6 once per attention layer;
+    whisper's encoder and its decoder's cross-attention over 192 frames,
+    keys padded to 256 on the CPU, go through B6 too) within 1e-4, and 8
+    decode steps within 1e-4."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import attention as A
+    from repro_torch.models import frontends as F
+    from repro_torch.models import model as M
+    cfg = get_smoke(arch).with_(attn_q_block=64, attn_kv_block=128)
+    monkeypatch.setattr(A, "DENSE_MAX_SEQ", 128)
+    params = M.init_params(cfg, prng.PRNGKey(0, device=cuda_device),
+                           device=cuda_device)
+    cpu = copy.deepcopy(params).cpu()
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 256), device=cuda_device,
+                                     generator=gen)}
+    if cfg.is_enc_dec:
+        batch["frames"] = F.synth_audio_frames(prng.PRNGKey(2, device=cuda_device),
+                                               2, 192, cfg.d_model)
+    fa = flash_attention.flash_attention
+    with torch.no_grad():
+        before = fa.launches
+        got, aux = M.forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        assert fa.launches == before + launches
+        want, want_aux = M.forward(cpu, cfg, {k: v.cpu() for k, v in batch.items()})
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-6, rtol=1e-5)
+        caches = M.init_caches(cfg, 2, 8, device=cuda_device)
+        caches_cpu = M.init_caches(cfg, 2, 8, device="cpu")
+        for t in range(8):
+            tok = batch["tokens"][:, t:t + 1]
+            g, caches = M.decode_step(params, cfg, tok, caches, t)
+            w, caches_cpu = M.decode_step(cpu, cfg, tok.cpu(), caches_cpu, t)
+            torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)

@@ -318,14 +318,6 @@ def test_other_dense_architectures_match_reference(arch):
                                rtol=1e-4)
 
 
-def test_unported_architectures_raise():
-    for arch in ("mamba2_130m", "granite_moe_1b", "deepseek_v2_236b",
-                 "hymba_1p5b", "whisper_tiny"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            M.init_params(get_smoke(arch), prng.PRNGKey(0, device=CPU),
-                          device=CPU)
-
-
 def test_declared_arange_path_agrees_with_blockwise(smoke, monkeypatch):
     """The branch the card takes above DENSE_MAX_SEQ for positions declared
     ``arange`` (B6, here its plain version) against the blockwise branch on
