@@ -9,14 +9,17 @@ Phases, each of which raises (and exits non-zero) on failure:
 
 1. card: name and power limit, as ``nvidia-smi`` reports them;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (``quant.cu``, ``votes.cu`` and ``attention.cu``, one ``nvcc`` each, in
-   parallel), count the HGMMA (tensor-core) instructions in the
-   attention library's SASS (``cuobjdump``), which must be more than 0,
-   and read the registers and spills of B6's float32 instances;
+   (``quant.cu``, ``votes.cu`` and ``attention.cu``, one ``nvcc`` each, all
+   started together); the FediAC phases wait for the first two only, and
+   the attention library goes on compiling beside them until the stream
+   path has run; then count the HGMMA (tensor-core) instructions in its
+   SASS (``cuobjdump``), which must be more than 0, and read the
+   registers and spills of B6's float32 instances;
 3. kernel parity: each kernel against its plain-torch version on the card,
    at the main paths' shapes and at ragged / edge cases: bitwise for the
-   six FediAC kernels; for B6 ``flash_attention`` within a tolerance
-   (float32 3e-5, bfloat16 2e-2), since its sums run in another order;
+   six FediAC kernels; for B6 ``flash_attention`` (after the stream
+   path, once its library is built) within a tolerance (float32 3e-5,
+   bfloat16 2e-2), since its sums run in another order;
 4. main path: two FediAC rounds at d = 1,000,000 and N = 32 (the largest
    monolithic cell of ``benchmarks/aggregation_round.py``), vote_chunk 1
    and 4, with the fused kernels on, then 3 rounds of the FL loop at its
@@ -25,7 +28,7 @@ Phases, each of which raises (and exits non-zero) on failure:
 5. checks: the rounds' outputs against the same computation on the CPU
    (plain versions) from the card's vote counts, bitwise, and the vote
    counts of a whole CPU round against the card's; the FL loop against
-   its CPU run;
+   its CPU run (the rounds' CPU side beside the card's later phases);
 6. comparison path (the paper's Sec. V): the five baselines through
    ``make_aggregator`` at N = 32, d = 1,000,000 (libra two rounds), FediAC
    with the trim and median closes at vote_chunk 1 and 4, the FL loop for
@@ -182,8 +185,42 @@ Phases, each of which raises (and exits non-zero) on failure:
    against CPU: float32 within ``CHECK_TOL`` (B6's float32 instance held
    to plain; whisper's cross-attention over 1,500 frames through it),
    bf16 within ``CHECK_TOL_BF16`` without a router, and with one the share
-   of tokens whose expert set differs reported; and a float32 engine
-   whose every request's tokens equal its own greedy decode.
+   of tokens whose expert set differs reported (DeepSeek-V2's bf16 check
+   on the card alone); and a float32 engine whose every request's tokens
+   equal its own greedy decode;
+17. train path (``phase_train``, after the NCCL rank): 2 gloo ranks on the
+   card, one client each, run Qwen3-0.6B's FediAC train step at full
+   width and depth (random weights from ``PRNGKey(0)``; 4 x 2,048 tokens
+   per client, E = 4, ``microbatch`` 4, bf16 compute) through
+   ``training.dist_step.make_train_step`` with ``granularity="tensor"``
+   and the kernels on: 3 steps of the default FediACConfig (B1 once per
+   leaf), then one each of the allreduce path's configs A (B3 + B5) and B
+   (B4a + B5 + B1).  Gates: a finite loss; the parameters and the mean
+   equal on both ranks after every step (64-bit digests of their bits);
+   on the first step of each config, every leaf's mean within eight
+   float32 ulps of the averaged ``u + res - new_res``; the counts zeroed
+   before each step and read after rise by exactly one per leaf (13) for
+   each kernel on that config's path and by 0 for the others; every one
+   of those launches followed by its plain version on the same operands
+   on the card, bitwise (left out of the times, the idle share and the
+   peak).  Step time (slowest rank, median of the 3 default steps; the
+   third profiled for the card's idle share) split into local update and
+   aggregation, client tokens/s and peak memory per rank are printed.
+   Before those steps the same ranks run the check step (2 layers,
+   float32, 1 x 256 tokens, E = 1; its launches held to plain as above,
+   the embedding's included): its loss against 2 CPU ranks' within 1e-5
+   relative, and the card's aggregate replayed on the CPU (beside the
+   card's steps) bitwise for every leaf but the 155.6M-coordinate
+   embedding.  Last, a forward at S = 4,096 under autograd must make B6
+   raise (it has no backward).
+
+The CPU references of the checks, the comparison (baselines and robust
+closes) and the lossy packet round run in a spawned process on half the
+host's cores, beside the card's phases, and their gates when it is
+settled, before the train path; so do the zoo's CPU prefills (each
+family's but DeepSeek-V2's, whose 7.3 GiB model runs them in place),
+once every family's timed model has run, their gates at the zoo's end.
+Each gate is the one the phase ran before, and raises as it did.
 
 The last three lines of standard output are the kernels' JSON record, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -209,9 +246,6 @@ DEV = "cuda"
 N_CLIENTS, D = 32, 1_000_000
 FL_SHAPE = (20, 21_322)          # the FL loop's update stack: 20 clients x
                                  # the MLP 96-128-64-10's parameters
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory (data sheet)
-FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores;
-                                 # also the bound used for integer ALU work
 AR_RANKS = 8                     # clients of the allreduce, one rank each
 AR_D = 8 * 4096 * 3052 // 8      # 12,500,992: SHARD_D / SHARD_DEVICES of
                                  # benchmarks/aggregation_round.py
@@ -219,7 +253,6 @@ AR_CHECK_D = 1_000_000           # card vs CPU allreduce width
 AR_ROUNDS = 2
 AR_TIME_ITERS = 3
 WIRE_D = AR_D
-BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores (data sheet)
 QWEN = "qwen3_0p6b"
 QWEN_PARAMS = 596_049_920
 PREFILL_SEQ = 32_768             # PREFILL_32K (configs/base.py)
@@ -301,6 +334,10 @@ ZOO_CHECK_CUTS = {"deepseek_v2_236b": {"n_experts": 16}}
 #: B6 runs), its CPU path's query block halved to divide it: at 4,096 the
 #: CPU took 38-51 s in float32 and 80 s in bfloat16 (PERF.md section 6)
 ZOO_CHECK_SEQ = {"deepseek_v2_236b": (2_304, dict(attn_q_block=1_152))}
+#: checks run on the card alone (their B6 launches and B6 against its plain
+#: version, no CPU prefill): DeepSeek-V2's bfloat16 one, whose CPU side
+#: gated nothing (a router: its routing flips were reported) and took 43 s
+ZOO_CHECK_CARD_ONLY = {("deepseek_v2_236b", "bfloat16")}
 #: B6 launches of the check prefill (2 layers, S = CHECK_SEQ): whisper's
 #: decoder runs self- and cross-attention (T = 1,500) through it
 ZOO_CHECK_B6 = {"granite_moe_1b": 2, "deepseek_v2_236b": 2, "hymba_1p5b": 2,
@@ -310,6 +347,10 @@ ZOO_CHECK_B6 = {"granite_moe_1b": 2, "deepseek_v2_236b": 2, "hymba_1p5b": 2,
 #: wrong dispatch flips a large share.  With no flip the logits are held to
 #: CHECK_TOL, with one (a token's expert set changed) to CHECK_TOL_BF16
 ZOO_FLIP_MAX_F32 = 1e-3
+#: a check model of up to this many bytes of parameters goes to the CPU
+#: side (through a file) for its CPU prefills; DeepSeek-V2's (7.3 GiB) runs
+#: them here
+ZOO_SIDE_MAX_BYTES = 2 << 30
 
 
 def log(msg: str) -> None:
@@ -421,8 +462,12 @@ def graph_ms(fn, launches: int = 50, replays: int = 5) -> float:
 
 
 def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    """The larger of the bytes over the card's memory rate and the
+    operations over its float32 rate (also the bound used for integer ALU
+    work): the H100's figures of ``repro_torch.launch.mesh``."""
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_FP32
+    t_bytes = bytes_moved / HBM_BW * 1e3
+    t_ops = ops / PEAK_FLOPS_FP32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -444,13 +489,29 @@ def phase_card() -> str:
     return card
 
 
-def phase_build() -> float:
+def phase_build() -> dict:
+    """Start one ``nvcc`` for each source, all together, and wait for the
+    FediAC kernels' two (``quant``, ``votes``); the attention library goes
+    on compiling beside the FediAC phases (:func:`phase_build_attention`)."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    seconds = build.build_all()
-    total = time.perf_counter() - t0
-    log(f"[build] {seconds} ({total:.1f} s in all)")
-    return total
+    build.start()
+    out = {"seconds": build.finish(("quant", "votes")), "t0": t0}
+    out["wait_s"] = time.perf_counter() - t0
+    log(f"[build] {out['seconds']} ({out['wait_s']:.1f} s waited); "
+        "attention compiling")
+    return out
+
+
+def phase_build_attention(b: dict) -> None:
+    """Wait for the attention library that :func:`phase_build` started."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    b["seconds"].update(build.finish(("attention",)))
+    b["wait_s"] += time.perf_counter() - t0
+    b["wall_s"] = time.perf_counter() - b.pop("t0")
+    log(f"[build] {b['seconds']} ({b['wait_s']:.1f} s waited of "
+        f"{b['wall_s']:.1f} s from the first nvcc to the last library)")
 
 
 def hgmma_count() -> int:
@@ -640,6 +701,135 @@ def _fl_setup():
     return clients, test, cfg
 
 
+# ---------------------------------------------------------------------------
+# The CPU side: CPU references computed in a spawned process while the
+# card's phases go on
+# ---------------------------------------------------------------------------
+
+#: the run's :class:`_CpuSide`, made by :func:`main`
+SIDE = None
+
+
+def _side_init(src: str, threads: int) -> None:
+    """The side process's start: no card (it computes on the CPU only),
+    ``threads`` of the host's cores, the repository's sources on the
+    path."""
+    import os
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    import torch
+    torch.set_num_threads(threads)
+    import repro_torch  # noqa: F401
+
+
+class _Saved(str):
+    """The path of an input :meth:`_CpuSide.put` saved: the side process
+    loads it in its place."""
+
+
+def _side_run(fn, out: str, args: tuple) -> float:
+    """``fn(*args)``, each :class:`_Saved` argument loaded, saved to
+    ``out``; returns its seconds."""
+    import torch
+    t0 = time.perf_counter()
+    args = [torch.load(a, weights_only=False) if isinstance(a, _Saved) else a
+            for a in args]
+    torch.save(fn(*args), out)
+    return time.perf_counter() - t0
+
+
+class _CpuSide:
+    """One spawned process that computes CPU references while the card's
+    phases go on.  A phase saves a job's tensors with :meth:`put` (so that
+    no tensor crosses the process boundary in a pickle), submits a
+    function that computes the reference from them with the gate to hold
+    it to (:meth:`submit`), and goes on; :meth:`settle` waits
+    for each job in turn, loads its result and runs its gate, which raises
+    as the phase's own check would.  Nothing is checked in the process.
+    It has no card and half the host's cores, so the card's phases keep
+    theirs."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+        import os
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_side_")
+        self.threads = max(1, (os.cpu_count() or 2) // 2)
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_side_init, initargs=(str(ROOT / "src"), self.threads))
+        self.pool.submit(int)            # start it (and torch) now
+        self.jobs, self.named, self.n, self.seconds = [], {}, 0, {}
+
+    def put(self, obj, name: str | None = None) -> _Saved:
+        """``obj`` saved for a job, which gets it in the returned path's
+        place; once per ``name``."""
+        import torch
+        if name in self.named:
+            return self.named[name]
+        self.n += 1
+        path = _Saved(f"{self.dir}/in{self.n}.pt")
+        torch.save(obj, path)
+        if name is not None:
+            self.named[name] = path
+        return path
+
+    def submit(self, label: str, gate, fn, *args) -> None:
+        """``fn(*args)`` in the process; at :meth:`settle`,
+        ``gate(result, seconds)``."""
+        self.n += 1
+        out = f"{self.dir}/out{self.n}.pt"
+        self.jobs.append((label, out, gate,
+                          self.pool.submit(_side_run, fn, out, args)))
+
+    def settle(self) -> None:
+        import os
+
+        import torch
+        while self.jobs:
+            label, out, gate, job = self.jobs.pop(0)
+            t0 = time.perf_counter()
+            self.seconds[label] = job.result()
+            waited = time.perf_counter() - t0
+            res = torch.load(out, weights_only=False)
+            os.remove(out)
+            log(f"[cpu side] {label}: {self.seconds[label]:.1f} s on "
+                f"{self.threads} threads ({waited:.1f} s waited)")
+            gate(res, self.seconds[label])
+
+    def close(self) -> None:
+        """Stop the process, a job running or not, and remove the files."""
+        for proc in list(getattr(self.pool, "_processes", {}).values()):
+            proc.terminate()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _to_host(x):
+    """``x`` with every tensor in it (in tuples, lists and dicts) copied to
+    the host."""
+    import torch
+    if torch.is_tensor(x):
+        return x.cpu()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_to_host(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_host(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _to_host(v) for k, v in x.items()}
+    return x
+
+
+def _cpu_round(u, cfg, key, counts):
+    """The CPU's side of a stacked round: phase 2 and the aggregate from
+    the card's vote counts, and the vote counts of a whole CPU round
+    (``aggregate_stack``)."""
+    from repro_torch.core.fediac import aggregate_from_counts, aggregate_stack
+    return (*aggregate_from_counts(u, cfg, key, counts),
+            aggregate_stack(u, cfg, key)[2])
+
+
 def _round_cfg(g):
     from repro_torch.core.engines import EngineSpec
     from repro_torch.core.fediac import FediACConfig
@@ -677,12 +867,14 @@ def phase_main_path(u_stack, key) -> dict:
 
 
 def phase_checks(u_stack, key, main) -> dict:
-    """Outputs against the CPU (plain versions) and the FL run's sanity."""
+    """Outputs against the CPU (plain versions) and the FL run's sanity.
+    The rounds' CPU side goes to :data:`SIDE`: its gates run (and fill
+    ``counts_differ_g*``) when it settles."""
     import torch
-    from repro_torch.core.fediac import aggregate_from_counts, aggregate_stack
     from repro_torch.training.fl_loop import run_federated
     report = {}
-    u_cpu, key_cpu = u_stack.cpu(), key.cpu()
+    u_cpu = SIDE.put(u_stack.cpu(), "u_stack")
+    key_cpu = SIDE.put(key.cpu(), "key")
     for g, (delta, residuals, counts, traffic) in main["rounds"].items():
         cfg = _round_cfg(g)
         k = cfg.k(D // g)
@@ -692,20 +884,26 @@ def phase_checks(u_stack, key, main) -> dict:
               f"g={g}: non-finite outputs")
         check(int(counts.sum()) == N_CLIENTS * k,
               f"g={g}: counts sum {int(counts.sum())} != N*k {N_CLIENTS * k}")
-        t0 = time.perf_counter()
-        d_cpu, r_cpu = aggregate_from_counts(u_cpu, cfg, key_cpu, counts.cpu())
-        check(same_bits(delta, d_cpu) and same_bits(residuals, r_cpu),
-              f"g={g}: card phase 2 + aggregate != CPU from the card's counts")
-        _, _, c_cpu, _ = aggregate_stack(u_cpu, cfg, key_cpu)
-        n_diff = int((c_cpu != counts.cpu()).sum())
-        # the vote scores replay XLA's log on both devices, so the counts
-        # are expected equal; the gate leaves room for a libm ulp in log.
-        check(n_diff <= 1e-4 * (D // g),
-              f"g={g}: {n_diff} vote counts differ card vs CPU")
-        log(f"[checks] g={g}: phase 2 + aggregate bitwise card == CPU; "
-            f"{n_diff} of {D // g} vote counts differ card vs CPU whole round "
-            f"({time.perf_counter() - t0:.1f} s on the CPU)")
-        report[f"counts_differ_g{g}"] = n_diff
+
+        def gate(cpu, seconds, g=g, delta=delta.cpu(),
+                 residuals=residuals.cpu(), counts=counts.cpu()):
+            d_cpu, r_cpu, c_cpu = cpu
+            check(same_bits(delta, d_cpu) and same_bits(residuals, r_cpu),
+                  f"g={g}: card phase 2 + aggregate != CPU from the card's "
+                  "counts")
+            n_diff = int((c_cpu != counts).sum())
+            # the vote scores replay XLA's log on both devices, so the
+            # counts are expected equal; the gate leaves room for a libm
+            # ulp in log.
+            check(n_diff <= 1e-4 * (D // g),
+                  f"g={g}: {n_diff} vote counts differ card vs CPU")
+            log(f"[checks] g={g}: phase 2 + aggregate bitwise card == CPU; "
+                f"{n_diff} of {D // g} vote counts differ card vs CPU whole "
+                f"round ({seconds:.1f} s on the CPU side)")
+            report[f"counts_differ_g{g}"] = n_diff
+
+        SIDE.submit(f"checks g={g}", gate, _cpu_round, u_cpu, cfg, key_cpu,
+                    SIDE.put(counts.cpu()))
     hist = main["hist"]
     clients, test, flcfg = _fl_setup()
     chance = 1.0 / clients[0].n_classes
@@ -913,40 +1111,50 @@ def phase_compare(u_stack, key) -> dict:
     log(f"[compare] launches {launches}")
 
     # -- the baselines, card vs CPU: everything bitwise (both devices add
-    # the client axis in client order)
-    u_cpu, key_cpu = u_stack.cpu(), key.cpu()
+    # the client axis in client order); the CPU's rounds on the CPU side,
+    # the gates when it settles
+    u_cpu = SIDE.put(u_stack.cpu(), "u_stack")
+    keys_cpu = SIDE.put([k.cpu() for k in keys])
     out["baselines"] = {}
     for name in BASELINES:
-        t0 = time.perf_counter()
-        cpu = _run_baseline(name, u_cpu, keys)
-        for r, (card_r, cpu_r) in enumerate(zip(base[name], cpu)):
-            delta, res, state, traffic, load = card_r
-            where = f"{name} round {r}"
+        for r, (delta, res, *_) in enumerate(base[name]):
             check(delta.shape == (D,) and res.shape == (N_CLIENTS, D)
                   and bool(torch.isfinite(delta).all()),
-                  f"{where}: delta {tuple(delta.shape)} not finite / shaped")
-            check(same_bits(delta, cpu_r[0]) and same_bits(res, cpu_r[1]),
-                  f"{where}: card delta / residuals != CPU")
-            check((state is None and cpu_r[2] is None)
-                  or same_bits(state, cpu_r[2]),
-                  f"{where}: card state != CPU")
-            check(traffic == cpu_r[3] and load == cpu_r[4],
-                  f"{where}: traffic {traffic} / load {load} != CPU "
-                  f"{cpu_r[3]} / {cpu_r[4]}")
+                  f"{name} round {r}: delta {tuple(delta.shape)} not finite "
+                  "/ shaped")
+        _, res, _, traffic, load = base[name][-1]
         # the uploaded coordinates (u != residual) of every client
         uploaded = int((res != u_stack).sum())
-        out["baselines"][name] = {
-            "rounds": len(cpu), "uploaded": uploaded,
+        info = out["baselines"][name] = {
+            "rounds": len(base[name]), "uploaded": uploaded,
             "mb_per_client": traffic.total_bytes / 1e6,
-            "slot_adds": load.slot_adds, "aligned": load.aligned,
-            "cpu_s": time.perf_counter() - t0}
-        log(f"[compare] {name}: card == CPU bitwise (delta, residuals, "
-            f"state, traffic, load) over {len(cpu)} round(s); {uploaded} "
-            f"coordinates uploaded ({out['baselines'][name]['cpu_s']:.1f} s "
-            f"on the CPU)")
-    del base, cpu
+            "slot_adds": load.slot_adds, "aligned": load.aligned}
 
-    # -- the robust closes: phase 2 and the close on the CPU from the
+        def gate(cpu, seconds, name=name, info=info,
+                 card=_to_host(base[name])):
+            check(len(cpu) == len(card), f"{name}: {len(cpu)} CPU rounds")
+            for r, (card_r, cpu_r) in enumerate(zip(card, cpu)):
+                delta, res, state, traffic, load = card_r
+                where = f"{name} round {r}"
+                check(same_bits(delta, cpu_r[0]) and same_bits(res, cpu_r[1]),
+                      f"{where}: card delta / residuals != CPU")
+                check((state is None and cpu_r[2] is None)
+                      or same_bits(state, cpu_r[2]),
+                      f"{where}: card state != CPU")
+                check(traffic == cpu_r[3] and load == cpu_r[4],
+                      f"{where}: traffic {traffic} / load {load} != CPU "
+                      f"{cpu_r[3]} / {cpu_r[4]}")
+            info["cpu_s"] = seconds
+            log(f"[compare] {name}: card == CPU bitwise (delta, residuals, "
+                f"state, traffic, load) over {len(cpu)} round(s); "
+                f"{info['uploaded']} coordinates uploaded ({seconds:.1f} s "
+                "on the CPU side)")
+
+        SIDE.submit(f"compare {name}", gate, _run_baseline, name, u_cpu,
+                    keys_cpu)
+    del base
+
+    # -- the robust closes: phase 2 and the close on the CPU side from the
     # card's vote counts, bitwise
     for (close, g), (delta, res, counts, _) in robust.items():
         cfg = _robust_cfg(close, dict(ROBUST_CLOSES)[close], g)
@@ -955,14 +1163,19 @@ def phase_compare(u_stack, key) -> dict:
               f"{close} g={g}: outputs not finite / shaped")
         check(int(counts.sum()) == N_CLIENTS * cfg.k(D // g),
               f"{close} g={g}: counts sum {int(counts.sum())}")
-        t0 = time.perf_counter()
-        d_cpu, r_cpu = fediac.aggregate_from_counts(u_cpu, cfg, key_cpu,
-                                                    counts.cpu())
-        check(same_bits(delta, d_cpu) and same_bits(res, r_cpu),
-              f"{close} g={g}: card phase 2 + close != CPU from the card's "
-              "counts")
-        log(f"[compare] {close} g={g}: phase 2 + close bitwise card == CPU "
-            f"({time.perf_counter() - t0:.1f} s on the CPU)")
+
+        def gate(cpu, seconds, close=close, g=g, delta=delta.cpu(),
+                 res=res.cpu()):
+            d_cpu, r_cpu = cpu
+            check(same_bits(delta, d_cpu) and same_bits(res, r_cpu),
+                  f"{close} g={g}: card phase 2 + close != CPU from the "
+                  "card's counts")
+            log(f"[compare] {close} g={g}: phase 2 + close bitwise card == "
+                f"CPU ({seconds:.1f} s on the CPU side)")
+
+        SIDE.submit(f"compare {close} g={g}", gate,
+                    fediac.aggregate_from_counts, u_cpu, cfg,
+                    SIDE.put(key.cpu(), "key"), SIDE.put(counts.cpu()))
     del robust
 
     # -- the FL loop per aggregator, card vs CPU, and the paper's order
@@ -1641,12 +1854,14 @@ def _vote_median(n: int, d: int, seed: int, round_idx: int = 0,
 
 
 @contextlib.contextmanager
-def _quant_tally(by_kernel: dict):
-    """Tally the launches of B1 (``gather_quant``) and B2 (``stoch_quant``)
-    by operand shape while the block runs, as :func:`_b1_tally` does B1's."""
+def _quant_tally(by_kernel: dict,
+                 names: tuple = ("gather_quant", "stoch_quant")):
+    """Tally the launches of the kernels ``names`` calls through
+    ``kernels.ops`` (by default B1, ``gather_quant``, and B2,
+    ``stoch_quant``) by operand shape while the block runs, as
+    :func:`_b1_tally` does B1's."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.gather_quant import gather_quant
-    from repro_torch.kernels.stoch_quant import stoch_quant
+    real = {name: getattr(ops, name) for name in names}
 
     def tallied(name, fn):
         def call(u, *args):
@@ -1660,12 +1875,13 @@ def _quant_tally(by_kernel: dict):
             return res
         return call
 
-    ops.gather_quant = tallied("gather_quant", gather_quant)
-    ops.stoch_quant = tallied("stoch_quant", stoch_quant)
+    for name, fn in real.items():
+        setattr(ops, name, tallied(name, fn))
     try:
         yield
     finally:
-        ops.gather_quant, ops.stoch_quant = gather_quant, stoch_quant
+        for name, fn in real.items():
+            setattr(ops, name, fn)
 
 
 class _QuantCounter:
@@ -1862,21 +2078,29 @@ def phase_packet(card: str) -> dict:
     check(card_r.stats["passes"] > 1 and 0 < card_r.n_active < N_CLIENTS,
           f"lossy round: passes {card_r.stats['passes']}, "
           f"{card_r.n_active} uploaders")
-    t_cpu = time.perf_counter()
-    cpu_r = _packet_round(cfg, lossy, u.cpu(), key.cpu(), 1)
-    t_cpu = time.perf_counter() - t_cpu
-    gaps = _packet_gates("lossy packet round card vs CPU", card_r, cpu_r,
-                         times_exact=False)
-    out["lossy"] = {
+    lossy_out = out["lossy"] = {
         "n": N_CLIENTS, "d": D, "net": PACKET_NET, "vote_deadline_s": deadline,
         "votes_missed_deadline": missed,
         "votes_lost": card_r.stats["votes_lost"],
         "uploaders": card_r.n_active, "passes": card_r.stats["passes"],
         "retransmissions": card_r.stats["retransmissions"],
-        "wall_clock_s": card_r.wall_clock_s, "time_rel_gaps": gaps,
-        "cpu_round_s": t_cpu, "seconds": time.perf_counter() - t0}
-    log(f"[packet] {card}: lossy round card == CPU " + json.dumps(out["lossy"]))
-    del free, cpu_r
+        "wall_clock_s": card_r.wall_clock_s,
+        "seconds": time.perf_counter() - t0}
+
+    # the same round on the CPU side, the gates when it settles
+    def gate(cpu_r, seconds, card_r=dataclasses.replace(
+            card_r, delta=card_r.delta.cpu(),
+            residuals=card_r.residuals.cpu())):
+        lossy_out["time_rel_gaps"] = _packet_gates(
+            "lossy packet round card vs CPU", card_r, cpu_r,
+            times_exact=False)
+        lossy_out["cpu_round_s"] = seconds
+        log(f"[packet] {card}: lossy round card == CPU "
+            + json.dumps(lossy_out))
+
+    SIDE.submit("packet lossy", gate, _packet_round, cfg, lossy,
+                SIDE.put(u.cpu()), SIDE.put(key.cpu()), 1)
+    del free
 
     # -- (e, first half) times at N_CLIENTS x D
     rates = torch.as_tensor(client_rates(N_CLIENTS, PACKET_NET["seed"]),
@@ -3778,10 +4002,11 @@ def phase_serve() -> dict:
     out["prefill_top_kernels"] = [(n[:60], ms, c) for n, ms, c in rows[:5]]
     # B6's instances: bf16 (tensor cores) at the 32k layer, the main path;
     # float32 (FFMA over a TMA ring) at the check prefill's layer
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16, PEAK_FLOPS_FP32
     out["b6"] = {
-        "bfloat16": time_b6(q, k, v, kw, BF16_OPS_PER_S, out["launches"],
+        "bfloat16": time_b6(q, k, v, kw, PEAK_FLOPS_BF16, out["launches"],
                             graph=dict(launches=5, replays=2)),
-        "float32": time_b6(q32, k32, v32, kw32, FP32_OPS_PER_S,
+        "float32": time_b6(q32, k32, v32, kw32, PEAK_FLOPS_FP32,
                            out["check_launches"], iters=10,
                            graph=dict(launches=10, replays=3))}
     out["b6_share_of_prefill"] = (out["b6"]["bfloat16"]["device_ms"]
@@ -3878,10 +4103,11 @@ def _b6_vs_plain(calls, tol) -> tuple[float, float]:
     return err, plain_ms
 
 
+@contextlib.contextmanager
 def _moe_routes():
-    """Record each MoE dispatch's top-k expert sets (sorted, on the host),
-    recomputed from its router as the dispatch computes them; returns the
-    list and an undo."""
+    """For the block, each MoE dispatch's top-k expert sets recorded in the
+    list yielded (sorted, on the host), recomputed from its router as the
+    dispatch computes them."""
     import torch
     from repro_torch.models import moe
     routes, real = [], moe._moe_core
@@ -3893,7 +4119,10 @@ def _moe_routes():
         return real(p, xt, cfg)
 
     moe._moe_core = watched
-    return routes, lambda: setattr(moe, "_moe_core", real)
+    try:
+        yield routes
+    finally:
+        moe._moe_core = real
 
 
 def _zoo_prefill(arch: str) -> dict:
@@ -3969,8 +4198,10 @@ def _zoo_prefill(arch: str) -> dict:
     out["b6_share_of_prefill"] = out["b6_device_ms"] / out["prefill_ms"]
     out["prefill_top_kernels"] = [(n[:60], ms, c) for n, ms, c in rows[:5]]
     if calls:
+        from repro_torch.launch.mesh import PEAK_FLOPS_BF16, PEAK_FLOPS_FP32
         q, k, v, kw = calls[0]
-        ops = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else FP32_OPS_PER_S
+        ops = (PEAK_FLOPS_BF16 if q.dtype == torch.bfloat16
+               else PEAK_FLOPS_FP32)
         out["b6"] = time_b6(q, k, v, kw, ops, out["launches"],
                             plain_ms=out["plain_ms"])
     del calls, logits
@@ -4023,15 +4254,34 @@ def _zoo_prefill(arch: str) -> dict:
     return out
 
 
+def _zoo_check_cpu(cfg, cpu, seq, dts, batch_cpu) -> dict:
+    """The CPU's side of :func:`_zoo_check`: the prefill of each dtype of
+    ``dts``, with its MoE routes, and its seconds."""
+    from repro_torch.configs import InputShape
+    from repro_torch.training.serve import make_serve_step
+    shape = InputShape("prefill_check", seq, 1, "prefill")
+    out = {}
+    for dt in dts:
+        c = cfg.with_(compute_dtype=dt)
+        t0 = time.perf_counter()
+        with _moe_routes() as routes:
+            lc = make_serve_step(c, shape, device="cpu").step(cpu, batch_cpu)
+        out[dt] = (lc.float(), routes if c.n_experts else None,
+                   time.perf_counter() - t0)
+    return out
+
+
 def _zoo_check(arch: str) -> dict:
     """One family at ``CHECK_LAYERS`` layers, full width (DeepSeek's
     experts and sequence cut for the CPU's sake), S = CHECK_SEQ: the card's
-    prefill
-    against the CPU's in float32 (B6's float32 instance held to plain at
-    each kind of layer) and in bfloat16 (gated without a router; with one,
-    the share of tokens routed to another expert set is reported), then a
-    float32 ``ServingEngine``'s tokens against each request's own greedy
-    decode."""
+    prefill in float32 (B6's float32 instance held to plain at each kind of
+    layer) and in bfloat16, then a float32 ``ServingEngine``'s tokens
+    against each request's own greedy decode.  The same prefills on the
+    CPU (:func:`_zoo_check_cpu`) go to :data:`SIDE` for a model of up to
+    ZOO_SIDE_MAX_BYTES of parameters, beside the card's work (the gates
+    when it settles), and run here for a larger one: the card against the
+    CPU in float32 and in bfloat16 (gated without a router; with one, the
+    share of tokens routed to another expert set is reported)."""
     import copy
 
     import torch
@@ -4054,68 +4304,82 @@ def _zoo_check(arch: str) -> dict:
     cfg = cfg.with_(**blocks)
     if seq != CHECK_SEQ:
         out["cuts"]["seq"] = seq
+    shape = InputShape("prefill_check", seq, 1, "prefill")
+    batch = _zoo_batch(cfg, 1, seq, seed=17)
+    card, on_cpu = {}, []
     for dt in ("float32", "bfloat16"):
         c = cfg.with_(compute_dtype=dt)
-        shape = InputShape("prefill_check", seq, 1, "prefill")
-        batch = _zoo_batch(cfg, 1, seq, seed=17)
-        batch_cpu = {k: v.cpu() for k, v in batch.items()}
-        routes = None
-        if c.n_experts:
-            routes, undo = _moe_routes()
-        try:
-            t0 = time.perf_counter()
+        t0 = time.perf_counter()
+        with _moe_routes() as routes:
             lg, calls, dtypes = _capture_b6(
                 lambda: make_serve_step(c, shape).step(params, batch),
                 keep=_keep_kinds)
             torch.cuda.synchronize()
-            card_s = time.perf_counter() - t0
-            check(dtypes == [dt] * len(dtypes)
-                  and len(dtypes) == ZOO_CHECK_B6[arch],
-                  f"{arch} check prefill {dt}: B6 calls {dtypes}, want "
-                  f"{ZOO_CHECK_B6[arch]}")
-            err = None
-            if calls:
-                err, _ = _b6_vs_plain(calls, None)
-            n_card = len(routes) if routes is not None else 0
-            t0 = time.perf_counter()
-            lc = make_serve_step(c, shape, device="cpu").step(cpu, batch_cpu)
-            cpu_s = time.perf_counter() - t0
-        finally:
-            if routes is not None:
-                undo()
-        a, b = lg.float().cpu(), lc.float()
-        rel = float((a - b).abs().max() / b.abs().max())
-        res = dict(seq=seq, rel_err=rel,
-                   same_argmax=bool(torch.equal(a.argmax(-1), b.argmax(-1))),
-                   b6_launches=len(dtypes), b6_err_vs_plain=err,
+        card_s = time.perf_counter() - t0
+        check(dtypes == [dt] * len(dtypes)
+              and len(dtypes) == ZOO_CHECK_B6[arch],
+              f"{arch} check prefill {dt}: B6 calls {dtypes}, want "
+              f"{ZOO_CHECK_B6[arch]}")
+        err = None
+        if calls:
+            err, _ = _b6_vs_plain(calls, None)
+        res = dict(seq=seq, b6_launches=len(dtypes), b6_err_vs_plain=err,
                    b6_shapes=[[list(q.shape), list(k.shape), list(v.shape),
                                kw] for q, k, v, kw in calls],
-                   card_s=card_s, cpu_s=cpu_s)
-        if routes is not None:
-            card_r, cpu_r = routes[:n_card], routes[n_card:]
-            check(len(card_r) == len(cpu_r) > 0, f"{arch}: routes not recorded")
-            flipped = [float((x != y).any(-1).float().mean())
-                       for x, y in zip(card_r, cpu_r)]
-            res["routing_flip_share_by_layer"] = flipped
-        if dt == "float32":
-            flips = max(res.get("routing_flip_share_by_layer", [0.0]))
-            check(flips <= ZOO_FLIP_MAX_F32, f"{arch} f32 routing differs card "
-                  f"vs CPU: {res.get('routing_flip_share_by_layer')}")
-            tol = CHECK_TOL if flips == 0.0 else CHECK_TOL_BF16
-            check(rel <= tol and (res["same_argmax"] or flips > 0.0),
-                  f"{arch} card vs CPU f32 prefill: rel err {rel} (tolerance "
-                  f"{tol}), same argmax {res['same_argmax']}")
-        elif not c.n_experts:
-            check(rel <= CHECK_TOL_BF16,
-                  f"{arch} card vs CPU bf16 prefill: rel err {rel} > "
-                  f"{CHECK_TOL_BF16}")
+                   card_s=card_s, on_cpu=(arch, dt) not in ZOO_CHECK_CARD_ONLY)
         out[dt] = res
-        log(f"[zoo check] {arch} {CHECK_LAYERS} layers S={seq} {dt}: "
-            f"rel err {rel:.3g}, B6 {len(dtypes)} launches (err vs plain "
-            f"{err}), routing flips {res.get('routing_flip_share_by_layer')}"
-            f" (card {card_s:.1f} s, CPU {cpu_s:.1f} s)")
+        if res["on_cpu"]:
+            on_cpu.append(dt)
+            card[dt] = (lg.float().cpu(), routes if c.n_experts else None)
+        else:
+            check(bool(torch.isfinite(lg).all()),
+                  f"{arch} check prefill {dt}: non-finite logits")
+            log(f"[zoo check] {arch} {CHECK_LAYERS} layers S={seq} {dt}: "
+                f"card only, B6 {len(dtypes)} launches (err vs plain {err})")
         del lg, calls
+
+    def gate(cpu_out, seconds) -> None:
+        for dt in on_cpu:
+            res = out[dt]
+            (a, card_r), (b, cpu_r, res["cpu_s"]) = card[dt], cpu_out[dt]
+            rel = float((a - b).abs().max() / b.abs().max())
+            res.update(rel_err=rel, same_argmax=bool(torch.equal(
+                a.argmax(-1), b.argmax(-1))))
+            if card_r is not None:
+                check(len(card_r) == len(cpu_r) > 0,
+                      f"{arch}: routes not recorded")
+                res["routing_flip_share_by_layer"] = [
+                    float((x != y).any(-1).float().mean())
+                    for x, y in zip(card_r, cpu_r)]
+            if dt == "float32":
+                flips = max(res.get("routing_flip_share_by_layer", [0.0]))
+                check(flips <= ZOO_FLIP_MAX_F32, f"{arch} f32 routing differs "
+                      f"card vs CPU: {res.get('routing_flip_share_by_layer')}")
+                tol = CHECK_TOL if flips == 0.0 else CHECK_TOL_BF16
+                check(rel <= tol and (res["same_argmax"] or flips > 0.0),
+                      f"{arch} card vs CPU f32 prefill: rel err {rel} "
+                      f"(tolerance {tol}), same argmax {res['same_argmax']}")
+            elif not cfg.n_experts:
+                check(rel <= CHECK_TOL_BF16,
+                      f"{arch} card vs CPU bf16 prefill: rel err {rel} > "
+                      f"{CHECK_TOL_BF16}")
+            log(f"[zoo check] {arch} {CHECK_LAYERS} layers S={seq} {dt}: "
+                f"rel err {rel:.3g}, B6 {res['b6_launches']} launches (err "
+                f"vs plain {res['b6_err_vs_plain']}), routing flips "
+                f"{res.get('routing_flip_share_by_layer')} (card "
+                f"{res['card_s']:.1f} s, CPU {res['cpu_s']:.1f} s"
+                f"{' on the CPU side' if out['cpu_side'] else ''})")
+
+    batch_cpu = {k: v.cpu() for k, v in batch.items()}
+    nbytes = sum(t.numel() * t.element_size() for t in cpu.parameters())
+    out["cpu_side"] = nbytes <= ZOO_SIDE_MAX_BYTES
+    if out["cpu_side"]:
+        SIDE.submit(f"zoo {arch}", gate, _zoo_check_cpu, cfg, SIDE.put(cpu),
+                    seq, on_cpu, SIDE.put(batch_cpu))
+    else:
+        gate(_zoo_check_cpu(cfg, cpu, seq, on_cpu, batch_cpu), None)
     del cpu
+
     # the float32 engine on the card: each request's tokens its own greedy
     # decode
     prompts = _prompts(cfg.vocab)
@@ -4139,16 +4403,641 @@ def _zoo_check(arch: str) -> dict:
 
 def phase_zoo() -> dict:
     """The rest of the model zoo on the card: each family's timed model
-    (its prefill the main path of this phase), its card-vs-CPU check and
-    its float32 engine."""
+    (its prefill the main path of this phase), then each family's
+    card-vs-CPU check and float32 engine.  The timed models all run
+    first, while the CPU side is idle: the checks' CPU prefills go to it
+    (:func:`_zoo_check`), and the host-bound prefills and ticks are not
+    timed beside them."""
     out = {"prefill": {}, "check": {}, "phase_s": {}}
     for arch in ZOO:
         t0 = time.perf_counter()
         out["prefill"][arch] = _zoo_prefill(arch)
+        out["phase_s"][f"{arch} prefill"] = time.perf_counter() - t0
+    for arch in ZOO:
+        t0 = time.perf_counter()
         out["check"][arch] = _zoo_check(arch)
-        out["phase_s"][arch] = time.perf_counter() - t0
+        out["phase_s"][f"{arch} check"] = time.perf_counter() - t0
+    # the CPU's prefills that ran on the CPU side, and their gates
+    t0 = time.perf_counter()
+    SIDE.settle()
+    out["phase_s"]["cpu_side_waited"] = time.perf_counter() - t0
     out["launches"] = sum(p["launches"] for p in out["prefill"].values())
     log("[zoo] " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# train path: Qwen3-0.6B's FediAC train step (training/dist_step.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_RANKS = 2                   # clients, one gloo rank each, on the card
+TRAIN_ROWS, TRAIN_SEQ = 4, 2048   # per-client batch; 2,048 = DENSE_MAX_SEQ
+TRAIN_LR = 1e-2                   # make_train_step's default
+TRAIN_SCHEDULE = ("default", "default", "default", "A", "B")
+#: the steps whose every leaf is held to the conservation bound: the first
+#: of each config
+TRAIN_CONSERVED = (0, 3, 4)
+TRAIN_PROFILE_TOP = 8             # kernels listed from the profiled step
+TRAIN_LEAVES = 13                 # Qwen3-0.6B's reference tree (gated)
+#: the kernels each config's aggregation launches, once per leaf
+TRAIN_PATH_KERNELS = {"default": ("gather_quant",), **AR_PATH_KERNELS}
+TRAIN_KERNELS = ("gather_quant", "vote_pack", "pack", "popcount_accum")
+TRAIN_CHECK_LAYERS = 2            # the card-vs-CPU step: 2 layers, float32,
+TRAIN_CHECK_ROWS, TRAIN_CHECK_SEQ = 1, 256   # 1 x 256 tokens per client, E=1
+TRAIN_CHECK_RTOL = 1e-5           # its loss against the CPU's
+TRAIN_B6_SEQ = 4096               # a forward above DENSE_MAX_SEQ under autograd
+#: the check step's leaves the CPU aggregates again, by size: not the
+#: embedding, whose 155.6M coordinates of threefry took the host's CPU
+#: 200 s of a 243 s replay (PERF.md section 6)
+TRAIN_REPLAY_MAX = 1 << 26
+DIGEST_CHUNK = 1 << 24
+
+
+def _train_cfgs(**kw) -> dict:
+    """Qwen3-0.6B as published (with ``kw``'s changes) under each
+    aggregation config: its default FediACConfig (top-k / top-k, count
+    wire) and the allreduce path's A and B, each at ``granularity="tensor"``
+    with the kernels on."""
+    from repro_torch.configs import get
+    from repro_torch.core.engines import EngineSpec
+    cfg = get(QWEN).with_(**kw)
+    fed = dict(default=dataclasses.replace(
+        cfg.fediac, engine=EngineSpec(use_pallas=True)), **_ar_configs())
+    return {name: cfg.with_(fediac=dataclasses.replace(f, granularity="tensor"))
+            for name, f in fed.items()}
+
+
+def _digest(t) -> int:
+    """A 64-bit digest of a float32 tensor's bits: the sum of each element's
+    bits times an odd weight from its index, in wrapping int64.  Any one
+    element that differs changes it."""
+    import torch
+    flat = t.detach().reshape(-1).view(torch.int32)
+    total = torch.zeros((), dtype=torch.int64, device=flat.device)
+    for s in range(0, flat.numel(), DIGEST_CHUNK):
+        bits = flat[s:s + DIGEST_CHUNK].to(torch.int64)
+        idx = torch.arange(s, s + bits.numel(), device=flat.device)
+        total += (bits * (idx * -7046029254386353131 + 1442695040888963407
+                          | 1)).sum()
+    return int(total)
+
+
+class _HeldToPlain:
+    """While active, every launch of the kernels ``names`` through
+    ``kernels.ops`` is followed by its plain version on the same operands,
+    on the card, the two held bitwise: ``launches`` counts the launches so
+    held, ``bad`` lists those that differed.  The plain calls are timed
+    apart, synchronized before and after: ``ms`` in all, and their
+    wall-clock windows ``windows_ns``, which a step's times and idle share
+    leave out.  Their memory is left out of the peak: ``peak`` is the
+    largest allocation seen outside them (the peak counter is reset after
+    each)."""
+
+    def __init__(self, names: tuple):
+        self.names, self.launches = names, {n: 0 for n in names}
+        self.bad, self.ms, self.windows_ns, self.peak = [], 0.0, [], 0
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.bitpack import pack_plain
+        from repro_torch.kernels.gather_quant import gather_quant_plain
+        from repro_torch.kernels.vote_pack import vote_pack_plain
+        from repro_torch.kernels.vote_popcount import popcount_accum_plain
+        plain = {"gather_quant": gather_quant_plain, "pack": pack_plain,
+                 "vote_pack": vote_pack_plain,
+                 "popcount_accum": popcount_accum_plain}
+        counters = _counters()
+        self.real = {n: getattr(ops, n) for n in self.names}
+        for n in self.names:
+            setattr(ops, n, self._held(n, self.real[n], plain[n], counters[n]))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for n, fn in self.real.items():
+            setattr(ops, n, fn)
+
+    def _held(self, name, fn, plain, kernel):
+        import torch
+
+        def call(*args):
+            before = kernel.launches
+            got = fn(*args)
+            if kernel.launches == before:
+                return got
+            torch.cuda.synchronize()
+            self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+            w0, t0 = time.time_ns(), time.perf_counter()
+            want = plain(*args)
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            if not all(same_bits(a, b) for a, b in pairs):
+                self.bad.append(f"{name} {list(args[0].shape)}")
+            del want
+            torch.cuda.synchronize()
+            self.ms += (time.perf_counter() - t0) * 1e3
+            self.windows_ns.append((w0, time.time_ns()))
+            self.launches[name] += 1
+            torch.cuda.reset_peak_memory_stats()
+            return got
+        return call
+
+
+class _AggRecorder:
+    """``dist_step._aggregate`` watched while a train step runs: each call's
+    operands and results kept for the gates, and its time (synchronized)."""
+
+    def __init__(self):
+        from repro_torch.training import dist_step
+        self.mod, self.real, self.calls = dist_step, dist_step._aggregate, []
+
+    def __enter__(self):
+        self.mod._aggregate = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._aggregate = self.real
+
+    def __call__(self, cfg, update, residual, key, layout, group):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, new_res = self.real(cfg, update, residual, key, layout, group)
+        torch.cuda.synchronize()
+        self.calls.append(dict(update=update, residual=residual, mean=mean,
+                               new_res=new_res, layout=layout,
+                               ms=(time.perf_counter() - t0) * 1e3))
+        return mean, new_res
+
+
+def _train_gates(call, world: int, conservation: bool) -> dict:
+    """This rank's gates of one train step: digests of its parameters and
+    of the mean (the parent compares them across ranks), and with
+    ``conservation`` for every leaf the mean against the averaged
+    ``u + res - new_res`` within the allreduce path's bound (eight float32
+    ulps of the group's max |u + res|), which sums 2.4 GB over gloo."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import collectives
+    lay = call["layout"]
+    u, res, new_res, mean = (call[k] for k in ("update", "residual",
+                                               "new_res", "mean"))
+    errs, tols = [], []
+    for o, n in (lay.spans if conservation else ()):
+        left = (u[o:o + n] + res[o:o + n] - new_res[o:o + n]).to(torch.float32)
+        dist.all_reduce(left)
+        gmax = collectives.pmax_((u[o:o + n] + res[o:o + n]).abs().max())
+        errs.append(float((left / world - mean[o:o + n]).abs().max()))
+        tols.append(8 * 2.0**-23 * float(gmax))
+        del left
+    return {"finite": bool(torch.isfinite(mean).all()
+                           and torch.isfinite(new_res).all()
+                           and all(torch.isfinite(p).all()
+                                   for p in lay.params)),
+            "leaves": len(lay.spans),
+            "mean_digest": _digest(mean),
+            "params_digest": [_digest(p) for p in lay.params],
+            "conservation_err": errs, "conservation_tol": tols}
+
+
+def _merge_spans(spans) -> list:
+    """Intervals ``(start, end)`` merged into disjoint ones, in order."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _train_batches(vocab: int, rows: int, seq: int, n: int, seed: int) -> list:
+    """``n`` global batches of ``lm_batches`` (the reference launcher's
+    Markov token streams); every rank makes the same ones."""
+    import numpy as np
+    from repro_torch.data.synthetic import lm_batches
+    return list(lm_batches(np.random.default_rng(seed), vocab, rows, seq, n))
+
+
+def _train_check_step(rank: int, world: int, tmp: str, mesh) -> tuple:
+    """The card's side of the check step: Qwen3-0.6B at full width cut to
+    TRAIN_CHECK_LAYERS layers, float32, E = 1, one step, every kernel
+    launch held to its plain version on the card (:class:`_HeldToPlain`),
+    the embedding's included; its weights (rank 0) and each rank's update,
+    mean and new residual go to ``tmp`` for the CPU's replay.  Returns the
+    step's loss, the launches held to plain and those that differed."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.models import init_params
+    from repro_torch.training import dist_step
+    cfg = _train_cfgs(n_layers=TRAIN_CHECK_LAYERS, compute_dtype="float32",
+                      fl_local_steps=1)["default"]
+    params = init_params(cfg, prng.PRNGKey(0, device=DEV), device=DEV)
+    layout = dist_step.FlatLayout(params)
+    if rank == 0:
+        torch.save(layout.gather().cpu(), f"{tmp}/check_params.pt")
+    batch = _train_batches(cfg.vocab, world * TRAIN_CHECK_ROWS,
+                           TRAIN_CHECK_SEQ, 1, 1)[0]
+    bundle = dist_step.make_train_step(cfg, mesh, lr=TRAIN_LR, use_pallas=True)
+    with _AggRecorder() as rec, _HeldToPlain(TRAIN_KERNELS) as held:
+        _, _, metrics = bundle.step(params, torch.zeros(layout.size,
+                                                        device=DEV),
+                                    batch, prng.PRNGKey(2, device=DEV))
+    (call,) = rec.calls
+    replayed = [(o, n) for o, n in layout.spans if n <= TRAIN_REPLAY_MAX]
+    torch.save({"update": call["update"].cpu(),
+                **{k: [call[k][o:o + n].cpu() for o, n in replayed]
+                   for k in ("mean", "new_res")}}, f"{tmp}/check{rank}.pt")
+    return float(metrics["loss"]), held.launches, held.bad
+
+
+def train_rank(rank: int, world: int, tmp: str) -> dict:
+    """One client of the train path (runs in a spawned rank).  First the
+    check step (:func:`_train_check_step`), after which rank 0 marks
+    ``tmp`` so the CPU's replay can start beside the rest; then Qwen3-0.6B's
+    train step at full width through ``make_train_step``, the steps of
+    ``TRAIN_SCHEDULE`` each gated and timed, the last default one also
+    profiled (device activity only)."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import prng
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import init_params
+    from repro_torch.training import dist_step
+    torch.cuda.set_device(0)
+    mesh = make_test_mesh()
+    t0 = time.perf_counter()
+    report = {"rank": rank, "steps": []}
+    (report["check_loss"], report["check_plain_launches"],
+     report["check_plain_bad"]) = _train_check_step(rank, world, tmp, mesh)
+    _free_card()
+    dist.barrier()
+    if rank == 0:
+        Path(f"{tmp}/check_ready").touch()
+    report["check_s"] = time.perf_counter() - t0
+
+    counters = _counters()
+    cfgs = _train_cfgs()
+    bundles = {name: dist_step.make_train_step(cfg, mesh, lr=TRAIN_LR,
+                                               use_pallas=True)
+               for name, cfg in cfgs.items()}
+    t0 = time.perf_counter()
+    params = init_params(cfgs["default"], prng.PRNGKey(0, device=DEV),
+                         device=DEV)
+    torch.cuda.synchronize()
+    report["init_s"] = time.perf_counter() - t0
+    layout = dist_step.FlatLayout(params)
+    residual = torch.zeros(layout.size, device=DEV)
+    batches = _train_batches(cfgs["default"].vocab, world * TRAIN_ROWS,
+                             TRAIN_SEQ, len(TRAIN_SCHEDULE), 0)
+    profiled = max(t for t, n in enumerate(TRAIN_SCHEDULE) if n == "default")
+    key = prng.PRNGKey(1, device=DEV)
+    torch.cuda.reset_peak_memory_stats()
+    report["launches_by_shape"], peak = {}, 0
+    for t, name in enumerate(TRAIN_SCHEDULE):
+        for c in counters.values():
+            c.launches = 0
+        key, sk = prng.split(key)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        wall_ns = [time.time_ns()]
+        with contextlib.ExitStack() as stack:
+            rec = stack.enter_context(_AggRecorder())
+            stack.enter_context(_quant_tally(report["launches_by_shape"],
+                                             TRAIN_KERNELS))
+            held = stack.enter_context(_HeldToPlain(TRAIN_KERNELS))
+            if t == profiled:
+                prof = stack.enter_context(profile(
+                    activities=[ProfilerActivity.CUDA]))
+            params, residual, metrics = bundles[name].step(
+                params, residual, batches[t], sk)
+            torch.cuda.synchronize()
+            # the plain versions' checks (all inside the aggregation) are
+            # left out of the step's times
+            step_ms = (time.perf_counter() - t1) * 1e3 - held.ms
+            wall_ns.append(time.time_ns())
+        peak = max(peak, held.peak)
+        launches = {k: c.launches for k, c in counters.items()}
+        (call,) = rec.calls
+        t1 = time.perf_counter()
+        step = {"config": name, "loss": float(metrics["loss"]),
+                "update_norm": float(metrics["update_norm"]),
+                "step_ms": step_ms, "aggregate_ms": call["ms"] - held.ms,
+                "local_ms": step_ms - call["ms"] + held.ms,
+                "launches": launches, "plain_launches": held.launches,
+                "plain_bad": held.bad, "plain_check_ms": held.ms,
+                "plain_windows_ns": held.windows_ns,
+                "profiled": t == profiled, "wall_ns": wall_ns,
+                **_train_gates(call, world, t in TRAIN_CONSERVED)}
+        step["gates_ms"] = (time.perf_counter() - t1) * 1e3
+        report["steps"].append(step)
+        del call, rec
+    # the trace's device activity read raw (its 174k events take the
+    # profiler's own summaries ~40 s): ms and launches by kernel name, and
+    # the busy intervals in wall-clock ns, merged, for the card's idle
+    # share across ranks
+    t0 = time.perf_counter()
+    spans, by_name = [], {}
+    # this rank's plain-version checks are left out: they run inside its
+    # own windows, which are synchronized at both ends
+    own = next(s for s in report["steps"] if s["profiled"])["plain_windows_ns"]
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            a, b = e.start_ns(), e.end_ns()
+            if any(w0 <= a < w1 for w0, w1 in own):
+                continue
+            spans.append((a, b))
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + (b - a) / 1e6, n + 1)
+    rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
+                  key=lambda r: -r[1])
+    report["profile"] = {"busy_ms": sum(r[1] for r in rows),
+                         "launches": len(spans),
+                         "top": rows[:TRAIN_PROFILE_TOP],
+                         "busy_ns": _merge_spans(spans)}
+    report["profile_s"] = time.perf_counter() - t0
+    report["peak_gib"] = max(peak, torch.cuda.max_memory_allocated()) / 2**30
+    report["leaves"] = len(layout.spans)
+    return report
+
+
+def train_check_rank(rank: int, world: int, tmp: str) -> dict:
+    """One client of the check step on the CPU, from the card's weights:
+    its own local update (loss and update against the card's), then the
+    card's update aggregated again here leaf by leaf, as ``_aggregate``
+    does it (each leaf with its key of ``split(key, leaves)``), against the
+    card's mean and residual bitwise; leaves above TRAIN_REPLAY_MAX
+    coordinates are left out and listed."""
+    import os
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.models import init_params
+    from repro_torch.training import dist_step
+    # the host's cores less two for each of the card's ranks (its own and
+    # its gloo work), running beside
+    torch.set_num_threads(max(1, ((os.cpu_count() or 4) - 2 * world)
+                              // world))
+    cfg = _train_cfgs(n_layers=TRAIN_CHECK_LAYERS, compute_dtype="float32",
+                      fl_local_steps=1)["default"]
+    params = init_params(cfg, prng.PRNGKey(0, device="meta"),
+                         device="meta").to_empty(device="cpu")
+    layout = dist_step.FlatLayout(params)
+    with torch.no_grad():
+        for p, w in zip(layout.params,
+                        layout.views(torch.load(f"{tmp}/check_params.pt"))):
+            p.copy_(w)
+    batch = _train_batches(cfg.vocab, world * TRAIN_CHECK_ROWS,
+                           TRAIN_CHECK_SEQ, 1, 1)[0]
+    t0 = time.perf_counter()
+    update, loss, _ = dist_step._local_update(
+        cfg, params, dist_step._rows(batch, rank, TRAIN_CHECK_ROWS, "cpu"),
+        TRAIN_LR, layout, 1)
+    local_s = time.perf_counter() - t0
+    card = torch.load(f"{tmp}/check{rank}.pt")
+    err = max(float((card["update"][o:o + n] - update[o:o + n]).abs().max()
+                    / update[o:o + n].abs().max())
+              for o, n in layout.spans)
+    t0 = time.perf_counter()
+    keys = prng.split(prng.PRNGKey(2, device="cpu"), len(layout.spans))
+    same, skipped, replayed = True, [], 0
+    card_out = zip(card["mean"], card["new_res"])
+    for (o, n), k in zip(layout.spans, keys):
+        if n > TRAIN_REPLAY_MAX:
+            skipped.append(n)
+            continue
+        m, nr = dist_step._aggregate_flat(cfg, card["update"][o:o + n],
+                                          torch.zeros(n), k, None)
+        card_m, card_nr = next(card_out)
+        same &= (same_bits(m.to(torch.float32), card_m)
+                 and same_bits(nr.to(torch.float32), card_nr))
+        replayed += n
+    return {"loss": float(loss), "update_rel_err": err, "local_s": local_s,
+            "replay_s": time.perf_counter() - t0, "same": same,
+            "replayed": replayed, "skipped": skipped}
+
+
+def _b6_refuses_autograd() -> dict:
+    """Qwen3-0.6B at full width cut to 2 layers, a forward at
+    TRAIN_B6_SEQ tokens with autograd on: B6 must raise, launching nothing."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import init_params, loss_fn
+    cfg = _train_cfgs(n_layers=TRAIN_CHECK_LAYERS)["default"]
+    params = init_params(cfg, prng.PRNGKey(0, device=DEV), device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (1, TRAIN_B6_SEQ), device=DEV,
+                           generator=gen)
+    before = fa.flash_attention.launches
+    try:
+        loss_fn(params, cfg, {"tokens": tokens, "targets": tokens})
+        raised = None
+    except NotImplementedError as e:
+        raised = str(e)
+    check(raised is not None and "no backward" in raised,
+          f"B6 ran under autograd at S={TRAIN_B6_SEQ} (it has no backward)")
+    check(fa.flash_attention.launches == before,
+          "B6 launched under autograd")
+    return {"seq": TRAIN_B6_SEQ, "raised": raised}
+
+
+def _cut_spans(spans, holes) -> list:
+    """Disjoint sorted intervals ``spans`` less the disjoint sorted
+    intervals ``holes``."""
+    out = []
+    for a, b in spans:
+        for h0, h1 in holes:
+            if h1 <= a or h0 >= b:
+                continue
+            if h0 > a:
+                out.append([a, h0])
+            a = max(a, h1)
+        if a < b:
+            out.append([a, b])
+    return out
+
+
+def _train_idle(reports) -> dict:
+    """The card's idle share over the profiled step: 1 - the union of both
+    ranks' device activity over the step's wall-clock window (from the
+    first rank's start to the last rank's end), both less the windows in
+    which either rank held its launches to their plain versions.  Each
+    rank's own busy share is its device time (its plain checks left out)
+    over that window; the two sum to more than the union where the ranks'
+    kernels overlapped on the card."""
+    steps = [next(s for s in rep["steps"] if s["profiled"]) for rep in reports]
+    t0 = min(s["wall_ns"][0] for s in steps)
+    t1 = max(s["wall_ns"][1] for s in steps)
+    holes = _merge_spans(tuple(w) for s in steps for w in s["plain_windows_ns"])
+    window = _cut_spans([[t0, t1]], holes)
+    union = _cut_spans(_merge_spans(tuple(span) for rep in reports
+                                    for span in rep["profile"]["busy_ns"]),
+                       holes)
+    span_ns = sum(b - a for a, b in window)
+    busy = sum(min(b, t1) - max(a, t0) for a, b in union if b > t0 and a < t1)
+    return {"idle_share": 1.0 - busy / span_ns,
+            "profiled_step_ms": span_ns / 1e6,
+            "busy_share_by_rank": [rep["profile"]["busy_ms"] * 1e6 / span_ns
+                                   for rep in reports],
+            "device_launches_by_rank": [rep["profile"]["launches"]
+                                        for rep in reports]}
+
+
+def phase_train(card: str) -> dict:
+    """The train path: :func:`train_rank` on TRAIN_RANKS spawned ranks on
+    the card, every rank held to the gates; the check step replayed on the
+    CPU (:func:`train_check_rank`, as many ranks) while the card's ranks
+    go on with the full-width steps; B6 refusing autograd."""
+    import concurrent.futures
+    from repro_torch import testing
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            card_ranks = pool.submit(testing.run_ranks, train_rank,
+                                     TRAIN_RANKS, f"file://{tmp}/store", tmp,
+                                     timeout=900)
+            while not Path(f"{tmp}/check_ready").exists():
+                if card_ranks.done():
+                    card_ranks.result()      # raises the ranks' failure
+                    raise RuntimeError("the train ranks ended before the "
+                                       "check step was ready")
+                time.sleep(0.5)
+            t1 = time.perf_counter()
+            cpu = testing.run_ranks(train_check_rank, TRAIN_RANKS,
+                                    f"file://{tmp}/store_cpu", tmp,
+                                    timeout=900)
+            cpu_s = time.perf_counter() - t1
+            reports = card_ranks.result()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    card_s = time.perf_counter() - t0
+    b6 = _b6_refuses_autograd()
+    launches = {k: 0 for k in _counters()}
+    for rep in reports:
+        r = rep["rank"]
+        check(rep["leaves"] == TRAIN_LEAVES,
+              f"rank {r}: {rep['leaves']} leaves, not {TRAIN_LEAVES}")
+        for t, s in enumerate(rep["steps"]):
+            where = f"rank {r} step {t} ({s['config']})"
+            check(s["finite"] and math.isfinite(s["loss"]),
+                  f"{where}: non-finite loss {s['loss']}, mean or params")
+            on_path = TRAIN_PATH_KERNELS[s["config"]]
+            want = {k: (TRAIN_LEAVES if k in on_path else 0)
+                    for k in s["launches"]}
+            check(s["launches"] == want, f"{where}: launches rose by "
+                  f"{s['launches']}, not {want}")
+            check(s["plain_launches"] == {k: want[k] for k in TRAIN_KERNELS}
+                  and not s["plain_bad"], f"{where}: launches held to their "
+                  f"plain versions {s['plain_launches']}, differing "
+                  f"{s['plain_bad']}")
+            for k, v in s["launches"].items():
+                launches[k] += v
+            bad = [i for i, (e, tol) in enumerate(zip(s["conservation_err"],
+                                                      s["conservation_tol"]))
+                   if not e <= tol]
+            check(not bad, f"{where}: leaves {bad}: mean vs averaged u + res "
+                  f"- new_res off by {[s['conservation_err'][i] for i in bad]}"
+                  f" > {[s['conservation_tol'][i] for i in bad]}")
+    for t in range(len(TRAIN_SCHEDULE)):
+        steps = [rep["steps"][t] for rep in reports]
+        check(all(s["mean_digest"] == steps[0]["mean_digest"]
+                  and s["params_digest"] == steps[0]["params_digest"]
+                  for s in steps), f"step {t}: the ranks' means or "
+              "parameters differ")
+        check(all(s["loss"] == steps[0]["loss"] for s in steps),
+              f"step {t}: the ranks report different losses")
+    card_loss = reports[0]["check_loss"]
+    cpu_loss = sum(c["loss"] for c in cpu) / len(cpu)
+    check(abs(card_loss - cpu_loss) <= TRAIN_CHECK_RTOL * abs(cpu_loss),
+          f"check step: card loss {card_loss} vs CPU {cpu_loss}")
+    for r, c in enumerate(cpu):
+        check(c["same"], f"check step rank {r}: the card's aggregate "
+              "replayed on the CPU differs")
+    for rep in reports:
+        held = rep["check_plain_launches"]
+        check(held == {k: (TRAIN_LEAVES if k == "gather_quant" else 0)
+                       for k in TRAIN_KERNELS} and not rep["check_plain_bad"],
+              f"check step rank {rep['rank']}: launches held to their plain "
+              f"versions {held}, differing {rep['check_plain_bad']}")
+
+    def slowest(key, steps):
+        return sorted(max(rep["steps"][t][key] for rep in reports)
+                      for t in steps)[len(steps) // 2]
+
+    default = [t for t, n in enumerate(TRAIN_SCHEDULE) if n == "default"]
+    step_ms = slowest("step_ms", default)
+    tokens = TRAIN_ROWS * TRAIN_SEQ
+    e = _train_cfgs()["default"].fl_local_steps
+    by_shape = {}
+    for rep in reports:
+        for name, shapes in rep["launches_by_shape"].items():
+            for k, v in shapes.items():
+                by_shape.setdefault(name, {})
+                by_shape[name][k] = by_shape[name].get(k, 0) + v
+    for name, shapes in by_shape.items():
+        check(sum(shapes.values()) == launches[name],
+              f"{name}: {launches[name]} launches, by shape {shapes}")
+    out = {"ranks": TRAIN_RANKS, "rows": TRAIN_ROWS, "seq": TRAIN_SEQ,
+           "local_steps": e, "leaves": TRAIN_LEAVES, "launches": launches,
+           "launches_by_shape": by_shape,
+           "step_ms": step_ms,
+           "local_ms": slowest("local_ms", default),
+           "aggregate_ms": slowest("aggregate_ms", default),
+           "step_ms_by_config": {n: max(rep["steps"][t]["step_ms"]
+                                        for rep in reports)
+                                 for t, n in enumerate(TRAIN_SCHEDULE)
+                                 if n != "default"},
+           "step_ms_all": [max(rep["steps"][t]["step_ms"] for rep in reports)
+                           for t in range(len(TRAIN_SCHEDULE))],
+           "aggregate_ms_all": [max(rep["steps"][t]["aggregate_ms"]
+                                    for rep in reports)
+                                for t in range(len(TRAIN_SCHEDULE))],
+           "gates_ms_all": [max(rep["steps"][t]["gates_ms"]
+                                for rep in reports)
+                            for t in range(len(TRAIN_SCHEDULE))],
+           **_train_idle(reports),
+           "profile_top_by_rank": [rep["profile"]["top"] for rep in reports],
+           "profile_s": max(rep["profile_s"] for rep in reports),
+           "check_s": max(rep["check_s"] for rep in reports),
+           "client_tokens_per_s": tokens / step_ms * 1e3,
+           "client_trained_tokens_per_s": e * tokens / step_ms * 1e3,
+           "peak_gib_per_rank": max(rep["peak_gib"] for rep in reports),
+           "losses": [rep0["loss"] for rep0 in reports[0]["steps"]],
+           "conservation_err_max": max(
+               e for rep in reports for s in rep["steps"]
+               for e in s["conservation_err"]),
+           "conservation_steps": [t for t, s in enumerate(reports[0]["steps"])
+                                  if s["conservation_err"]],
+           "plain_launches": sum(v for rep in reports for s in rep["steps"]
+                                 for v in s["plain_launches"].values()),
+           "plain_check_ms_all": [max(rep["steps"][t]["plain_check_ms"]
+                                      for rep in reports)
+                                  for t in range(len(TRAIN_SCHEDULE))],
+           "init_s": max(rep["init_s"] for rep in reports),
+           "check": {"card_loss": card_loss, "cpu_loss": cpu_loss,
+                     "update_rel_err": max(c["update_rel_err"] for c in cpu),
+                     "cpu_local_s": max(c["local_s"] for c in cpu),
+                     "cpu_replay_s": max(c["replay_s"] for c in cpu),
+                     "replayed_coordinates": cpu[0]["replayed"],
+                     "skipped_leaves": cpu[0]["skipped"],
+                     "aggregate_bitwise": True},
+           "b6_refuses_autograd": b6, "card_s": card_s, "cpu_s": cpu_s,
+           "card": card}
+    log(f"[train] {card}: {QWEN} full width, {TRAIN_RANKS} clients x "
+        f"{TRAIN_ROWS} x {TRAIN_SEQ} tokens, E={e}, granularity tensor, "
+        f"kernels on: every gate held; step {step_ms:.1f} ms (local "
+        f"{out['local_ms']:.1f}, aggregation {out['aggregate_ms']:.1f}), "
+        f"{out['client_tokens_per_s']:.0f} client tokens/s, peak "
+        f"{out['peak_gib_per_rank']:.2f} GiB per rank, idle share "
+        f"{out['idle_share']:.3f}; losses "
+        f"{out['losses']}; launches {launches}, each bitwise its plain "
+        f"version ({out['plain_launches']} held, the check step's too); "
+        f"conservation on steps {out['conservation_steps']}; check step "
+        f"card == CPU "
+        f"(loss {card_loss} vs {cpu_loss}); B6 refused autograd "
+        f"({card_s:.1f} s, the CPU replay {cpu_s:.1f} s of it)")
     return out
 
 
@@ -4178,7 +5067,8 @@ def time_b6(q, k, v, kw, ops_per_s: float, launches: int, *, iters: int = 3,
     fl = b * h * pairs * 2 * (d + dv)
     nbytes = sum(x.numel() * x.element_size() for x in (q, k, v)) \
         + b * s * h * dv * q.element_size()
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    from repro_torch.launch.mesh import HBM_BW
+    t_bytes = nbytes / HBM_BW * 1e3
     t_ops = fl / ops_per_s * 1e3
     run = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
     if plain_ms is None:
@@ -4228,16 +5118,23 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (sets the float32 matmul flags)
-    from repro_torch.core import prng
-
+    global SIDE
     t_start = time.perf_counter()
+    SIDE = _CpuSide()
+    try:
+        return run(t_start)
+    finally:
+        SIDE.close()
+
+
+def run(t_start: float) -> int:
+    """Every phase, in order, then the records and the result line."""
+    import torch
+    from repro_torch.core import prng
     card = phase_card()
-    build_s = phase_build()
-    hgmma = hgmma_count()
-    simt_res = simt_resources()
+    build = phase_build()
     parity_err = phase_parity()
     parity_err.update(phase_wire_parity())
-    flash_err = phase_flash_parity()
     gen = torch.Generator(device=DEV).manual_seed(0)
     scale = torch.empty(D, device=DEV).exponential_(generator=gen)
     u_stack = torch.randn(N_CLIENTS, D, device=DEV, generator=gen) * scale
@@ -4254,6 +5151,11 @@ def main() -> int:
     report = timed("checks", phase_checks, u_stack, key, main_path)
     compare = timed("compare", phase_compare, u_stack, key)
     stream = timed("stream", phase_stream, u_stack, key)
+    # B6's build, compiled beside the phases so far, and its parity
+    phase_build_attention(build)
+    hgmma = hgmma_count()
+    simt_res = simt_resources()
+    flash_err = timed("flash_parity", phase_flash_parity)
     shard = timed("shard", phase_shard, card)
     packet = timed("packet", phase_packet, card)
     faults = timed("faults", phase_faults, card)
@@ -4261,6 +5163,10 @@ def main() -> int:
     sweep = timed("sweep", phase_sweep, card)
     allreduce = timed("allreduce", phase_allreduce, card)
     nccl = timed("nccl", phase_nccl, card)
+    # the CPU side's references of the phases so far, and their gates
+    timed("cpu_side", SIDE.settle)
+    _free_card()
+    train = timed("train", phase_train, card)
     timing = timed("timing", phase_timing, u_stack, key)
     timing.update(timed("wire_timing", phase_wire_timing))
     serve = timed("serve", phase_serve)
@@ -4287,10 +5193,11 @@ def main() -> int:
         on_faults = faults["launches"].get(name, 0)
         on_async = asyn["launches"].get(name, 0)
         on_sweep = sweep["launches"].get(name, 0)
+        on_train = train["launches"][name]
         launches = (main_path["launches"].get(name, 0)
                     + compare["launches"][name] + on_stream + on_packet
                     + on_faults + on_async + on_sweep
-                    + allreduce["launches"][name])
+                    + allreduce["launches"][name] + on_train)
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces, "launches": launches,
                  "on_path": name != "unpack",
@@ -4306,7 +5213,8 @@ def main() -> int:
             at_shape = (main_path["round_launches"]
                         + compare["robust_round_launches"])
             fl = (launches - at_shape - allreduce["launches"][name]
-                  - on_stream - on_packet - on_faults - on_async - on_sweep)
+                  - on_stream - on_packet - on_faults - on_async - on_sweep
+                  - on_train)
             cell = stream["b1_chunk"]
             entry["launches_at_shape"] = at_shape
             entry["also_at"] = [
@@ -4348,6 +5256,12 @@ def main() -> int:
             # throughput cells' and the resume cell's FL loops), by shape
             entry["async_launches"] = on_async
             entry["async_launches_by_shape"] = asyn[
+                "launches_by_shape"].get(name, {})
+        if on_train:
+            # the train path's launches (Qwen3-0.6B's train step, one per
+            # leaf of its aggregation on each rank), by shape
+            entry["train_launches"] = on_train
+            entry["train_launches_by_shape"] = train[
                 "launches_by_shape"].get(name, {})
         if name in sweep["launches"]:
             # the sweep path's launches (the smoke, chaos and fig2 grids'
@@ -4402,7 +5316,10 @@ def main() -> int:
     serve = {k: v for k, v in serve.items() if k != "b6"}
     timed = ("gather_quant", "gather_quant_allreduce", "gather_quant_fl",
              "stoch_quant", "vote_pack", "pack", "unpack", "popcount_accum")
-    summary = {"build_s": build_s, "total_s": time.perf_counter() - t_start,
+    from repro_torch.launch.mesh import DEVICE
+    summary = {"build": build, "cpu_side_s": SIDE.seconds,
+               "bounds_use_figures_of": DEVICE,
+               "total_s": time.perf_counter() - t_start,
                "phase_s": phase_s,
                **report, "compare": compare,
                "stream": {k: v for k, v in stream.items() if k != "b1_chunk"},
@@ -4411,6 +5328,7 @@ def main() -> int:
                "sweep": sweep,
                "allreduce": allreduce,
                "nccl": nccl,
+               "train": train,
                "serve": serve,
                "zoo": zoo,
                **{k: v for k, v in timing.items() if k not in timed}}

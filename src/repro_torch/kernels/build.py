@@ -10,7 +10,9 @@ nothing falls back to the plain versions.
 
 Nothing is compiled at import: the first kernel launch builds its library,
 and :func:`build_all` builds every source at once, one ``nvcc`` each, all
-started together.
+started together.  :func:`start` launches the compilers without waiting,
+and :func:`finish` waits for the libraries a caller needs, so that a long
+build goes on while the others are used.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "check", "library"]
+__all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "check", "finish", "library",
+           "start"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -58,6 +61,9 @@ SOURCES = {
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+#: source name -> its running build (:func:`_start`'s handle, or None when
+#: its library was on disk already), from :func:`start` to :func:`finish`
+_pending: dict = {}
 
 
 def _nvcc() -> str:
@@ -115,28 +121,42 @@ def _load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def start(names=None) -> None:
+    """Launch ``nvcc`` for every source of ``names`` (default: all) that is
+    neither loaded nor building, and return without waiting."""
+    with _lock:
+        for n in names or SOURCES:
+            if n not in _loaded and n not in _pending:
+                _pending[n] = _start(n)
+
+
+def finish(names=None) -> dict[str, float]:
+    """Build (or wait for the build :func:`start` began of) and load every
+    source of ``names`` (default: all).  Returns the compile seconds per
+    source (0.0 when it was on disk or loaded already)."""
+    names = tuple(names or SOURCES)
+    start(names)
+    seconds = {n: 0.0 for n in names}
+    with _lock:
+        for n in names:
+            if n in _pending:
+                seconds[n] = _finish(n, _pending.pop(n))
+                _loaded[n] = _load(n)
+    return seconds
+
+
 def build_all() -> dict[str, float]:
     """Compile every source that is not built yet, in parallel, and load
     them all.  Returns the compile seconds per source (0.0 when cached)."""
-    seconds = {n: 0.0 for n in SOURCES}
-    with _lock:
-        todo = [n for n in SOURCES if n not in _loaded]
-        started = {n: _start(n) for n in todo}
-        for n in todo:
-            seconds[n] = _finish(n, started[n])
-            _loaded[n] = _load(n)
-    return seconds
+    return finish()
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _loaded.get(name)
     if lib is None:
-        with _lock:
-            if name not in _loaded:
-                _finish(name, _start(name))
-                _loaded[name] = _load(name)
-            lib = _loaded[name]
+        finish((name,))
+        lib = _loaded[name]
     return lib
 
 

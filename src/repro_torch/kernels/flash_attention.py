@@ -144,12 +144,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
     kernel (and count it in ``flash_attention.launches``) or raise.
+
+    The kernel has no backward, as the reference's Pallas kernel has none
+    (the reference differentiates its plain blockwise scan instead).  So on
+    the card it refuses a call that autograd would record, rather than
+    return an output whose gradient leaves out q, k and v; training runs
+    the model's dense branch, up to ``models.attention.DENSE_MAX_SEQ``
+    tokens.
     """
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention has no kernel for {q.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward (nor has the reference's "
+            "Pallas kernel), so it cannot run under autograd: call it under "
+            "torch.no_grad(), or train at sequences up to DENSE_MAX_SEQ, "
+            "where the model's dense attention branch runs")
     bf16 = q.dtype == torch.bfloat16
     if bf16 and not all(tma_layout_ok(x) for x in (q, k, v)):
         raise ValueError(

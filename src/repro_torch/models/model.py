@@ -1,4 +1,4 @@
-"""Public model API: init / forward / decode for every ArchConfig.
+"""Public model API: init / loss / forward / decode for every ArchConfig.
 
 Mirrors the reference's ``models/model.py``.  ``init_params`` returns a
 :class:`Model`, an ``nn.Module`` whose ``nn.Parameter``s sit where the
@@ -9,8 +9,13 @@ reference's parameter tree puts its leaves (``embed``, ``final_norm``,
 compute dtype (:func:`cast_params`), as the reference's do, and run the
 functional blocks on it.
 
-``batch`` dict convention (prefill): ``{"tokens": (B, S) int}``, plus
-``"frames"`` (B, source_len, d_model) float for the encoder-decoder.
+``batch`` dict convention (train / prefill): ``{"tokens": (B, S) int}``,
+plus ``"targets"`` (B, S) int for the loss and ``"frames"`` (B,
+source_len, d_model) float for the encoder-decoder.
+
+:func:`reference_leaves` and :func:`param_tree` give the reference's view
+of the same parameters: its tree, whose dict keys flatten in sorted order
+and whose group leaves are stacked over the group's layers.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ from . import transformer as tr
 from .layers import dense_init, init_rms, rms_norm, sinusoidal_positions
 
 __all__ = ["Model", "init_params", "param_count", "cast_params", "forward",
-           "init_caches", "decode_step", "jax_leaf", "params_from_jax"]
+           "loss_fn", "init_caches", "decode_step", "jax_leaf",
+           "params_from_jax", "reference_leaves", "param_tree"]
 
 
 class Model(nn.Module):
@@ -143,6 +149,19 @@ def forward(params: Model, cfg, batch: dict, *, last_only: bool = False):
     return _head(params, cfg, x), aux
 
 
+def loss_fn(params: Model, cfg, batch: dict) -> torch.Tensor:
+    """Next-token cross entropy (+ 0.01 x the MoE aux loss), microbatch-safe:
+    the mean over (B, S) of ``logsumexp(logits) - logits[target]``, in
+    float32."""
+    logits, aux = forward(params, cfg, batch)
+    logits = logits.float()
+    targets = batch["targets"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, targets[..., None], dim=-1)[..., 0]
+    ce = (logz - gold).mean()
+    return ce + 0.01 * aux
+
+
 # ---------------------------------------------------------------------------
 # decode (serving)
 # ---------------------------------------------------------------------------
@@ -206,3 +225,43 @@ def params_from_jax(np_params: dict, cfg, device=None) -> Model:
                                  f"{leaf.shape}, the port's {tuple(p.shape)}")
             p.copy_(torch.from_numpy(np.array(leaf, np.float32)))
     return model
+
+
+# ---------------------------------------------------------------------------
+# the reference's tree over the port's parameters
+# ---------------------------------------------------------------------------
+
+def reference_leaves(params: Model) -> list:
+    """``[(path, parameters)]``, one entry per leaf of the reference's
+    parameter tree, in the order ``jax.tree_util`` flattens it: paths (the
+    reference's dict keys, e.g. ``("group0", "mix", "wq")``) in sorted
+    order, and for a group leaf the port's per-layer parameters in layer
+    order (the reference stacks them on axis 0; layer numbers sort as
+    numbers, never as strings).  A leaf outside the groups holds one
+    parameter."""
+    leaves: dict = {}
+    for name, p in params.named_parameters():
+        head, *rest = name.split(".")
+        layer = (int(rest.pop(0)) if head.startswith(("group", "enc_group"))
+                 else 0)
+        leaves.setdefault((head, *rest), []).append((layer, p))
+    return [(path, [p for _, p in sorted(leaves[path], key=lambda lp: lp[0])])
+            for path in sorted(leaves)]
+
+
+def _is_stacked(path: tuple) -> bool:
+    return path[0].startswith(("group", "enc_group"))
+
+
+def param_tree(params: Model) -> dict:
+    """The reference's parameter tree: nested dicts whose group leaves are
+    the layers' parameters stacked on axis 0 (a copy; on the ``meta``
+    device, shapes alone)."""
+    tree: dict = {}
+    for path, ps in reference_leaves(params):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = (torch.stack([p.detach() for p in ps])
+                          if _is_stacked(path) else ps[0].detach())
+    return tree

@@ -4,10 +4,10 @@ Mirrors the reference's ``models/transformer.py`` for every mixer
 (``attn``, ``mla``, ``ssm``, ``hybrid``), FFN (``mlp``, ``moe``, none) and
 the encoder-decoder's cross-attention.  Where the reference stacks a
 group's parameters and ``lax.scan``s over them, the port holds an
-``nn.ModuleList`` of blocks and walks it in Python.  The reference's
-``constrain_residual`` (mesh sharding of the residual stream) and
-``jax.checkpoint`` (remat for training) have no single-card counterpart
-in a forward-only slice and are left out.
+``nn.ModuleList`` of blocks and walks it in Python.  As in the
+reference, every layer's output goes through ``constrain_residual`` and,
+with ``cfg.remat`` while autograd records, each layer body is
+checkpointed (:func:`apply_group`).
 
 Caches are stacked over a group's layers on axis 0, as the reference's,
 whatever their nesting (attention ``{k, v}``, MLA ``{c_kv, k_rope}``, SSM
@@ -18,11 +18,13 @@ every leaf, which the layer updates in place.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core import prng
 from repro_torch.core.pytree import tree_map
@@ -163,16 +165,51 @@ def init_group(key: torch.Tensor, cfg, spec: GroupSpec) -> nn.ModuleList:
                          for i in range(spec.n_layers))
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of products without batch dimensions (``aten.mm``: every
+    ``x @ w``), recompute the rest (a ``bmm`` has a batch dimension)."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg) -> dict:
+    """``torch.utils.checkpoint.checkpoint`` arguments for ``cfg``'s remat
+    policy: ``"full"`` keeps each layer's input only; ``"dots"`` also keeps
+    its matmul outputs (selective checkpointing)."""
+    if cfg.remat_policy == "dots":
+        return dict(use_reentrant=False, context_fn=functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots))
+    return dict(use_reentrant=False)
+
+
 def apply_group(layers: list, x: torch.Tensor, cfg, spec: GroupSpec, *,
                 positions, arange_positions: bool = False, enc_out=None,
                 enc_positions=None):
-    """The group's blocks in order.  Returns (x, aux summed over layers
-    from 0, in layer order, as the reference's scan carry)."""
+    """The group's blocks in order, each output through
+    ``constrain_residual``.  Returns (x, aux summed over layers from 0, in
+    layer order, as the reference's scan carry).
+
+    With ``cfg.remat`` (while autograd records) each layer body runs under
+    ``torch.utils.checkpoint.checkpoint``, as the reference's scan body
+    runs under ``jax.checkpoint``: the backward recomputes the layer from
+    its stored input.  The recomputation gives the same values."""
+    from .shardings import constrain_residual
+
+    def body(layer_p, xc):
+        xc, aux_l = apply_block(layer_p, xc, cfg, spec, positions=positions,
+                                arange_positions=arange_positions,
+                                enc_out=enc_out, enc_positions=enc_positions)
+        return constrain_residual(xc), aux_l
+
+    if cfg.remat and torch.is_grad_enabled():
+        kw = _remat(cfg)
+        run = lambda layer_p, xc: ckpt.checkpoint(body, layer_p, xc, **kw)
+    else:
+        run = body
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer_p in layers:
-        x, aux_l = apply_block(layer_p, x, cfg, spec, positions=positions,
-                               arange_positions=arange_positions,
-                               enc_out=enc_out, enc_positions=enc_positions)
+        x, aux_l = run(layer_p, x)
         aux = aux + aux_l
     return x, aux
 

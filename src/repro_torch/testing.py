@@ -7,7 +7,8 @@ bit-views (words).
 
 :func:`run_ranks` runs a function on N spawned processes joined into one
 gloo group, the port's stand-in for the reference's N-device mesh;
-:func:`allreduce_worker` is the client side of the allreduce tests.  The
+:func:`allreduce_worker` is the client side of the allreduce tests and
+:func:`train_worker` of the train-step tests.  The
 spawned processes import only this package.  Under pytest-xdist,
 importing this module limits torch to one intra-op thread per worker.
 """
@@ -24,8 +25,11 @@ import pytest
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import prng
+
 __all__ = ["to_torch", "to_numpy", "key_to_torch", "requires_cuda",
-           "cuda_device", "run_ranks", "allreduce_worker"]
+           "cuda_device", "run_ranks", "allreduce_worker", "train_cfg",
+           "train_worker"]
 
 
 def _share_cores() -> None:
@@ -165,4 +169,113 @@ def allreduce_worker(rank: int, world_size: int, cases) -> list:
             torch.from_numpy(u[rank]), torch.from_numpy(res[rank]),
             key_to_torch(key), cfg)
         out.append((_host(mean), _host(new_res)))
+    return out
+
+
+def train_cfg(arch: str, kw: dict):
+    """A smoke config with ``kw``'s changes: ArchConfig fields, FediAC
+    fields under ``"fediac"``, and ``kernels`` for the engine's
+    ``use_pallas`` (as ``make_train_step(..., use_pallas=)`` sets it)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.core import engines
+    kw = dict(kw)
+    cfg = get_smoke(arch)
+    fed = dict(kw.pop("fediac", {}))
+    if "kernels" in kw:
+        fed["engine"] = dataclasses.replace(engines.resolve(cfg.fediac),
+                                            use_pallas=kw.pop("kernels"))
+    return cfg.with_(fediac=dataclasses.replace(cfg.fediac, **fed), **kw)
+
+
+def train_worker(rank: int, world_size: int, job: dict) -> dict:
+    """One rank of the train-step tests on the CPU (``make_train_step`` on
+    ``launch.mesh.make_test_mesh()``); each entry of ``job`` is optional:
+
+    * ``agg``: ``(cases, u[N, d], residual[N, d], key[2])``, ``cases`` a
+      list of ``(name, arch, cfg_kw)``: this client's aggregation of its
+      raveled update and residual -> ``{name: (mean, new_residual)}``;
+    * ``local``: ``(arch, params, batch, lr)``, the reference's parameter
+      tree and global batch as numpy: this client's local update on its
+      rows -> ``(update, loss)``;
+    * ``train``: ``(arch, batches, lr, key)``: ``len(batches)`` steps from
+      ``init_params(cfg, PRNGKey(0))`` -> the losses and the raveled
+      parameters after them;
+    * ``plain``: ``(arch, params, batch, lr, key)``: one step of ``arch``
+      with ``fsdp=True`` (plain mode) -> ``(raveled parameters, loss)``;
+    * ``pod``: ``(arch, batch, key)``: ranks 0 and 1 as two pods, one step
+      of ``arch`` with ``fsdp=True`` from ``init_params`` -> ``(mode,
+      n_clients, loss, sum of |parameter change|)``.
+    """
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import init_params, params_from_jax
+    from repro_torch.training import dist_step
+    out = {}
+
+    def tensors(batch):
+        return {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+    if "agg" in job:
+        cases, u, res, key = job["agg"]
+        out["agg"] = {}
+        for name, arch, kw in cases:
+            cfg = train_cfg(arch, kw)
+            layout = dist_step.FlatLayout(init_params(
+                cfg, torch.zeros(2, dtype=torch.int64, device="meta"),
+                device="meta"))
+            mean, new_res = dist_step._aggregate(
+                cfg, torch.from_numpy(u[rank]), torch.from_numpy(res[rank]),
+                key_to_torch(key), layout, None)
+            out["agg"][name] = (_host(mean), _host(new_res))
+    if "local" in job:
+        arch, params, batch, lr = job["local"]
+        cfg = train_cfg(arch, {})
+        model = params_from_jax(params, cfg, device="cpu")
+        rows = batch["tokens"].shape[0] // world_size
+        update, loss, _ = dist_step._local_update(
+            cfg, model, dist_step._rows(tensors(batch), rank, rows, "cpu"),
+            lr, dist_step.FlatLayout(model),
+            max(1, min(cfg.microbatch, rows)))
+        out["local"] = (_host(update), float(loss))
+    if "train" in job:
+        arch, batches, lr, key = job["train"]
+        cfg = train_cfg(arch, {})
+        model = init_params(cfg, prng.PRNGKey(0, device="cpu"), device="cpu")
+        bundle = dist_step.make_train_step(cfg, make_test_mesh(), lr=lr)
+        residual = torch.zeros(dist_step.FlatLayout(model).size)
+        key, losses = key_to_torch(key), []
+        for batch in batches:
+            key, sk = prng.split(key)
+            model, residual, metrics = bundle.step(model, residual,
+                                                   tensors(batch), sk)
+            losses.append(float(metrics["loss"]))
+        out["train"] = (losses, _host(dist_step.FlatLayout(model).gather()))
+    if "plain" in job:
+        arch, params, batch, lr, key = job["plain"]
+        cfg = train_cfg(arch, {"fsdp": True})
+        model = params_from_jax(params, cfg, device="cpu")
+        bundle = dist_step.make_train_step(cfg, make_test_mesh(), lr=lr)
+        model, _, metrics = bundle.step(model, torch.zeros(()),
+                                        tensors(batch), key_to_torch(key))
+        out["plain"] = (bundle.mode,
+                        _host(dist_step.FlatLayout(model).gather()),
+                        float(metrics["loss"]))
+    if "pod" in job:
+        arch, batch, key = job["pod"]
+        pods = dist.new_group([0, 1])
+        if rank < 2:
+            cfg = train_cfg(arch, {"fsdp": True})
+            bundle = dist_step.make_train_step(
+                cfg, make_test_mesh(multi_pod=True, group=pods), lr=0.1)
+            model = init_params(cfg, prng.PRNGKey(0, device="cpu"),
+                                device="cpu")
+            before = dist_step.FlatLayout(model).gather()
+            residual = torch.zeros(before.numel(),
+                                   dtype=getattr(torch, cfg.residual_dtype))
+            model, residual, metrics = bundle.step(
+                model, residual, tensors(batch), key_to_torch(key))
+            moved = (dist_step.FlatLayout(model).gather() - before).abs().sum()
+            out["pod"] = (bundle.mode, bundle.n_clients,
+                          float(metrics["loss"]), float(moved))
     return out

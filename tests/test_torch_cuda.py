@@ -1,8 +1,8 @@
 """The port on the card: each CUDA kernel against its plain version, and
 a round, the packet round (plain, chaos, Byzantine-robust and async) and
 the FL loop against the same on the CPU, a probe leaving the FL run
-bitwise.  Every test needs an
-NVIDIA GPU and skips without one.
+bitwise, B6 refusing autograd, and a train step against the CPU's.
+Every test needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the reference package, so it also runs
 on a GPU host that has no JAX, without the repository's conftest:
@@ -659,3 +659,91 @@ def test_zoo_forward_and_decode_card_match_cpu(cuda_device, monkeypatch, arch,
             g, caches = M.decode_step(params, cfg, tok, caches, t)
             w, caches_cpu = M.decode_step(cpu, cfg, tok.cpu(), caches_cpu, t)
             torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
+
+
+@requires_cuda
+def test_flash_attention_refuses_autograd_on_card(cuda_device, monkeypatch):
+    """B6 has no backward (nor has the reference's kernel): under autograd
+    it raises instead of returning an output whose gradient would leave
+    out q, k and v, and it still runs under ``torch.no_grad()``.  A model
+    forward above DENSE_MAX_SEQ with autograd on raises the same way."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(1, 256, 4, 64, device=cuda_device, generator=gen)
+    k = torch.randn(1, 256, 2, 64, device=cuda_device, generator=gen)
+    fa = flash_attention.flash_attention
+    before = fa.launches
+    for grad_of in ("q", "k", "v"):
+        args = {"q": q, "k": k, "v": k}
+        args[grad_of] = args[grad_of].clone().requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="no backward"):
+            fa(args["q"], args["k"], args["v"])
+    assert fa.launches == before
+    with torch.no_grad():
+        out = fa(q.requires_grad_(True), k, k)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and not out.requires_grad
+    cfg = get_smoke("qwen3_0p6b")
+    monkeypatch.setattr(A, "DENSE_MAX_SEQ", 128)
+    params = M.init_params(cfg, prng.PRNGKey(0, device=cuda_device),
+                           device=cuda_device)
+    tokens = torch.randint(0, cfg.vocab, (1, 256), device=cuda_device,
+                           generator=gen)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        M.loss_fn(params, cfg, {"tokens": tokens, "targets": tokens})
+
+
+@requires_cuda
+def test_train_step_on_card_matches_cpu(cuda_device, tmp_path):
+    """One client (a gloo group of one) of smoke qwen3's train step, kernels
+    on: the card's local update against the CPU's (loss within 1e-5
+    relative, each leaf within 1e-4 of its largest |u|), the card's
+    aggregate replayed on the CPU from the card's update bitwise (B1 once
+    on the card), and the whole step on the card, finite."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_smoke
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.testing import train_cfg
+    from repro_torch.training import dist_step
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        cfg = train_cfg("qwen3_0p6b", {"kernels": True})
+        card = init_params(cfg, prng.PRNGKey(0, device=cuda_device),
+                           device=cuda_device)
+        cpu = copy.deepcopy(card).cpu()
+        batch = next(lm_batches(np.random.default_rng(0), cfg.vocab, 8, 64, 1))
+        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        lay_c, lay_p = dist_step.FlatLayout(card), dist_step.FlatLayout(cpu)
+        u_c, loss_c, _ = dist_step._local_update(
+            cfg, card, {k: v.to(cuda_device) for k, v in batch.items()}, 0.2,
+            lay_c, 1)
+        u_p, loss_p, _ = dist_step._local_update(cfg, cpu, batch, 0.2, lay_p, 1)
+        assert abs(float(loss_c) - float(loss_p)) <= 1e-5 * abs(float(loss_p))
+        for o, n in lay_p.spans:
+            want = u_p[o:o + n]
+            err = float((u_c[o:o + n].cpu() - want).abs().max())
+            assert err <= 1e-4 * float(want.abs().max())
+        key = prng.PRNGKey(1, device=cuda_device)
+        res = torch.zeros_like(u_c)
+        before = gather_quant.gather_quant.launches
+        got = dist_step._aggregate(cfg, u_c, res, key, lay_c, None)
+        torch.cuda.synchronize()
+        assert gather_quant.gather_quant.launches == before + 1
+        want = dist_step._aggregate(cfg, u_c.cpu(), res.cpu(), key.cpu(),
+                                    lay_p, None)
+        assert all(_same(a, b) for a, b in zip(got, want))
+        fresh = init_params(cfg, prng.PRNGKey(0, device=cuda_device),
+                            device=cuda_device)
+        bundle = dist_step.make_train_step(cfg, make_test_mesh(), lr=0.2)
+        fresh, res, metrics = bundle.step(
+            fresh, torch.zeros(lay_c.size, device=cuda_device),
+            {k: v.to(cuda_device) for k, v in batch.items()}, key)
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(res).all()
+        assert all(torch.isfinite(p).all() for p in fresh.parameters())
+    finally:
+        dist.destroy_process_group()
