@@ -51,9 +51,12 @@ Phases, each of which raises (and exits non-zero) on failure:
    place and bitwise; the B1 count zeroed just before each run and read
    just after, and tallied by operand shape (one launch per chunk); B1 on
    the strided column views of each stack at every chunk and tail shape
-   these runs launch it at, bitwise against its plain version; then B1 at
-   the chunk shape [8, 262,144] and the two copies around each chunk's
-   launch;
+   these runs launch it at, and at views 1-3 columns off a 16-byte
+   boundary with an odd width, one row, and with the residual written into
+   the view itself (``out=``), bitwise against its plain version; then B1
+   at the chunk shape [8, 262,144], contiguous and on the strided chunk as
+   the engine hands it over, the residual returned fresh and written into
+   the residual stack (``out=``);
 8. shard path (``core/shard_engine.py``, every shard on the one card,
    kernels off, as the engine refuses them): at N = 8, d = 983,040 every
    vote x compact mode on 8 shards (and top-k/top-k on 3, ragged) bitwise
@@ -144,8 +147,9 @@ Phases, each of which raises (and exits non-zero) on failure:
    (world size 1) running the packed top-k allreduce and both mesh
    baselines, each bitwise against the same call on a one-rank gloo group;
 14. timing: each kernel, its plain version and its memory bound at the main
-   paths' shapes (``gather_quant`` at each of its shapes), and whole
-   rounds.  A kernel's ``ms`` is CUDA-event time per wrapper call (it
+   paths' shapes (``gather_quant`` at each of its shapes, the train
+   path's two largest leaves included; ``vote_pack`` and ``popcount`` also
+   at the train path's largest leaf), and whole rounds.  A kernel's ``ms`` is CUDA-event time per wrapper call (it
    includes the host's launch work whenever that is slower than the
    kernel); ``device_ms`` is the kernel alone, per launch of a replayed
    CUDA graph of back-to-back calls;
@@ -471,11 +475,13 @@ def bound(bytes_moved: int, ops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_kernel(fn, plain, nbytes: int, ops: int, shape: list) -> dict:
+def time_kernel(fn, plain, nbytes: int, ops: int, shape: list,
+                graph: dict | None = None) -> dict:
     """A kernel wrapper's call ms (CUDA events per call), its device ms (a
-    CUDA graph's replay), its plain version's ms and its bound."""
+    CUDA graph's replay, ``graph`` its :func:`graph_ms` arguments), its
+    plain version's ms and its bound."""
     t_b, by_b = bound(nbytes, ops)
-    return dict(ms=cuda_ms(fn), device_ms=graph_ms(fn),
+    return dict(ms=cuda_ms(fn), device_ms=graph_ms(fn, **(graph or {})),
                 plain_ms=cuda_ms(plain, iters=5), bound_ms=t_b, bound_by=by_b,
                 bytes=nbytes, shape=shape)
 
@@ -1330,9 +1336,9 @@ def _b1_tally(by_shape: dict):
     from repro_torch.kernels import ops
     from repro_torch.kernels.gather_quant import gather_quant
 
-    def tallied(u, *args):
+    def tallied(u, *args, **kw):
         before = gather_quant.launches
-        res = gather_quant(u, *args)
+        res = gather_quant(u, *args, **kw)
         k = str(list(u.shape))
         by_shape[k] = by_shape.get(k, 0) + gather_quant.launches - before
         return res
@@ -1357,7 +1363,11 @@ def _b1_strided_parity(u, c: int, q_keys, seed: int) -> list:
     (a full chunk, and the ragged tail where there is one), with that
     chunk's uniform_block draw, a 5% consensus mask and f from the stack's
     max, against its plain version on the same operands: q and the residual
-    bitwise.  Returns the shapes checked."""
+    bitwise.  Then on views no chunk size of these paths gives: starts 1, 2
+    and 3 columns past the full chunk's (off a 16-byte boundary) with an
+    odd width, one row, and the residual written into the view itself
+    (``out=``, on a copy of the columns around it).  Returns the views
+    checked."""
     import torch
     from repro_torch.core import streams
     from repro_torch.core.quantize import scale_factor
@@ -1365,22 +1375,41 @@ def _b1_strided_parity(u, c: int, q_keys, seed: int) -> list:
     n, d = u.shape
     f = torch.tensor(scale_factor(12, n, 1.0), device=DEV) / u.abs().max()
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    spans = [(c if d // c > 1 else 0, c)]
+    s0 = c if d // c > 1 else 0
+    odd = min(c, d - s0) - 3
+    odd -= 1 - odd % 2
+    # (what, rows, start, columns, residual written into the view)
+    cases = [("chunk", n, s0, c, False)]
     if d % c:
-        spans.append((d - d % c, d % c))
-    shapes = []
-    for start, cols in spans:
-        view = u[:, start:start + cols]
-        uni = streams.uniform_block(q_keys, start, cols, d)
+        cases.append(("tail", n, d - d % c, d % c, False))
+    if odd > 0:
+        cases += [(f"start+{k}", n, s0 + k, odd, False) for k in (1, 2, 3)]
+        cases += [("one row", 1, s0 + 1, odd, False),
+                  ("in place", n, s0 + 2, odd, True)]
+    checked = []
+    for what, rows, start, cols, in_place in cases:
+        uni = streams.uniform_block(q_keys[:rows], start, cols, d)
         sel = (torch.rand(cols, device=DEV, generator=gen) < 0.05).to(
             torch.uint8)
-        q, res = gather_quant(view, uni, sel, f)
-        q_p, res_p = gather_quant_plain(view, uni, sel, f)
-        check(same_bits(q, q_p) and same_bits(res, res_p),
-              f"B1 on the strided chunk u[:, {start}:{start + cols}] of a "
-              f"{list(u.shape)} stack != its plain version")
-        shapes.append([n, cols])
-    return shapes
+        if in_place:
+            # a copy of the view's columns, 3 columns into a buffer 6
+            # wider, so the view keeps a row stride and a misaligned start
+            view = torch.nn.functional.pad(
+                u[:rows, start:start + cols], (3, 3))[:, 3:3 + cols]
+            want = gather_quant_plain(view.clone(), uni, sel, f)
+            got = gather_quant(view, uni, sel, f, out=view)
+            ok = got[1] is view and same_bits(view, want[1])
+        else:
+            view = u[:rows, start:start + cols]
+            want = gather_quant_plain(view, uni, sel, f)
+            got = gather_quant(view, uni, sel, f)
+            ok = same_bits(got[1], want[1])
+        label = (f"{what} u[:{rows}, {start}:{start + cols}] of "
+                 f"{list(u.shape)}")
+        check(ok and same_bits(got[0], want[0]),
+              f"B1 on the strided view {label} != its plain version")
+        checked.append(label)
+    return checked
 
 
 def phase_stream(u_stack, key) -> dict:
@@ -1390,7 +1419,8 @@ def phase_stream(u_stack, key) -> dict:
     configs) and at 8 x STREAM_CHECK_D, the FL loop's history on it equal
     to the monolithic run's, then the 8 x STREAM_SCALE_D cell: timed,
     profiled, its peak memory with and without ``out=``, checked; then B1
-    at the cell's chunk shape and the copies around each chunk's launch."""
+    at the cell's chunk shape, contiguous and on the strided chunk with
+    and without ``out=``."""
 
     import torch
     from repro_torch.core import fediac, prng, stream_engine, streams
@@ -1581,9 +1611,9 @@ def phase_stream(u_stack, key) -> dict:
         "counts_sum": int(counts.sum()), "conservation_err": cons_err}
     log("[stream] scale cell " + json.dumps(out["scale"]))
 
-    # -- B1 at the cell's chunk shape, and the two copies around each
-    # chunk's launch: the wrapper's contiguous copy of the strided chunk
-    # of the stack, and the residual's copy into the residual stack
+    # -- B1 at the cell's chunk shape, and on the strided chunk as the
+    # chunk loop hands it over: its column view of the stack, with the
+    # residual returned fresh or written into the residual stack (out=)
     chunk = stream_engine.DEFAULT_CHUNK
     start = chunk
     gu, guni, gsel, gf = _stack_gather_inputs(n, chunk, seed=6)
@@ -1595,16 +1625,20 @@ def phase_stream(u_stack, key) -> dict:
     strided_parity(u, None, seed=24)
     log(f"[stream] B1 on strided chunks bitwise equal to its plain version "
         f"at {out['b1_strided_bitwise']}")
-    r_c = gather_quant(strided, guni, gsel, gf)[1]
-    b1["copy_in_ms"] = cuda_ms(lambda: strided.contiguous())
-    b1["copy_out_ms"] = cuda_ms(lambda: res[:, start:start + chunk].copy_(r_c))
-    b1["strided_call_ms"] = cuda_ms(
-        lambda: gather_quant(strided, guni, gsel, gf))
+    res_c = res[:, start:start + chunk]
+
+    def strided_call(**kw):
+        return lambda: gather_quant(strided, guni, gsel, gf, **kw)
+
+    for tag, call in (("strided", strided_call()),
+                      ("strided_out", strided_call(out=res_c))):
+        b1[f"{tag}_call_ms"] = cuda_ms(call)
+        b1[f"{tag}_device_ms"] = graph_ms(call)
     b1["uniform_block_ms"] = cuda_ms(
         lambda: streams.uniform_block(q_keys, start, chunk, d))
     out["b1_chunk"] = b1
     log("[stream] B1 at the chunk shape " + json.dumps(b1))
-    del u, res, delta, counts, strided, r_c, gu, guni, gsel
+    del u, res, delta, counts, strided, res_c, gu, guni, gsel
     _free_card()
     return out
 
@@ -1864,9 +1898,9 @@ def _quant_tally(by_kernel: dict,
     real = {name: getattr(ops, name) for name in names}
 
     def tallied(name, fn):
-        def call(u, *args):
+        def call(u, *args, **kw):
             before = fn.launches
-            res = fn(u, *args)
+            res = fn(u, *args, **kw)
             rose = fn.launches - before
             if rose:
                 shapes = by_kernel.setdefault(name, {})
@@ -3562,7 +3596,8 @@ def phase_nccl(card: str) -> dict:
 
 def phase_wire_timing() -> dict:
     """Each wire kernel, its plain version and its bound at the allreduce
-    path's shapes (d = AR_D, N = AR_RANKS)."""
+    path's shapes (d = AR_D, N = AR_RANKS), and B3 and B5 at the train
+    path's largest leaf."""
     import torch
     from repro_torch.kernels import bitpack, vote_pack, vote_popcount
     from repro_torch.kernels.ref import LANES, wire_groups
@@ -3590,6 +3625,25 @@ def phase_wire_timing() -> dict:
     out = {name: time_kernel(fn, plain, nbytes, ops,
                              [n, d] if name == "popcount_accum" else [d])
            for name, (fn, plain, nbytes, ops) in cases.items()}
+    # the train path's largest leaf: B3 over its scores, B5 over its
+    # ranks' words (shaped as the train path's tally keys them)
+    del mask, scores, words, stack
+    d, n = TRAIN_TIMED_LEAVES[0], TRAIN_RANKS
+    w = wire_groups(d) * LANES
+    _, scores = _wire_inputs(d, seed=7)
+    scores = torch.nan_to_num(scores)
+    tau = torch.quantile(scores[:1 << 24], 0.95).reshape(())
+    stack = _words(n, d, seed=8)
+    out["train_vote_pack"] = [time_kernel(
+        lambda: vote_pack.vote_pack(scores, tau),
+        lambda: vote_pack.vote_pack_plain(scores, tau),
+        4 * d + 4 * w + 4, 2 * d, [d], TRAIN_TIMED_GRAPH)]
+    out["train_popcount_accum"] = [time_kernel(
+        lambda: vote_popcount.popcount_accum(stack, d),
+        lambda: vote_popcount.popcount_accum_plain(stack, d),
+        4 * n * w + 4 * d, 64 * n * w, list(stack.shape), TRAIN_TIMED_GRAPH)]
+    del scores, stack
+    _free_card()
     log("[wire timing] " + json.dumps(out))
     return out
 
@@ -3614,6 +3668,15 @@ def phase_timing(u_stack, key) -> dict:
             lambda: gather_quant(gu, guni, gsel, gf),
             lambda: gather_quant_plain(gu, guni, gsel, gf),
             16 * rows * cols + cols + 4, 8 * rows * cols, [rows, cols])
+    # the train path's one-row launches at its two largest leaves
+    out["train_gather_quant"] = []
+    for i, cols in enumerate(TRAIN_TIMED_LEAVES):
+        g = _stack_gather_inputs(1, cols, seed=7 + i)
+        out["train_gather_quant"].append(time_kernel(
+            lambda g=g: gather_quant(*g), lambda g=g: gather_quant_plain(*g),
+            16 * cols + cols + 4, 8 * cols, [1, cols], TRAIN_TIMED_GRAPH))
+        del g
+        _free_card()
     cols = 4 * round(0.05 * d / 4)
     a, b = u[:, :cols].contiguous(), uni[:, :cols].contiguous()
     out["stoch_quant"] = time_kernel(
@@ -4450,6 +4513,14 @@ TRAIN_B6_SEQ = 4096               # a forward above DENSE_MAX_SEQ under autograd
 #: embedding, whose 155.6M coordinates of threefry took the host's CPU
 #: 200 s of a 243 s replay (PERF.md section 6)
 TRAIN_REPLAY_MAX = 1 << 26
+#: the train path's two largest leaves, one row each: Qwen3-0.6B's
+#: embedding (151,936 x 1,024) and a stack of 28 MLP projections
+#: (28 x 3,072 x 1,024); the timing phase times B1 at both, B3 and B5 at
+#: the first
+TRAIN_TIMED_LEAVES = (155_582_464, 88_080_384)
+#: a replayed graph of that many launches (and replays) for the kernels at
+#: those shapes: each launch of B1 there allocates 1.2 GB of outputs
+TRAIN_TIMED_GRAPH = dict(launches=5, replays=4)
 DIGEST_CHUNK = 1 << 24
 
 
@@ -4520,9 +4591,11 @@ class _HeldToPlain:
     def _held(self, name, fn, plain, kernel):
         import torch
 
-        def call(*args):
+        def call(*args, **kw):
+            # the plain version computes a fresh residual: an ``out=``
+            # that is not u itself is compared with it as it stands
             before = kernel.launches
-            got = fn(*args)
+            got = fn(*args, **kw)
             if kernel.launches == before:
                 return got
             torch.cuda.synchronize()
@@ -5226,15 +5299,17 @@ def run(t_start: float) -> int:
                                   ("gather_quant_fl", fl))]
             # the stream engine's chunk at the scale cell (its launches at
             # that shape, tallied per shape; the stream path's other chunk
-            # shapes are listed with theirs), with the copies around each
-            # launch; B1 on the strided chunks was held bitwise against
-            # its plain version at every stream shape
+            # shapes are listed with theirs), and on the strided chunk as
+            # the engine hands it over, with and without out=; B1 on the
+            # strided views was held bitwise against its plain version at
+            # every stream shape and at misaligned, one-row and in-place
+            # views
             entry["also_at"].append({
                 "launches": stream["launches_by_shape"][str(cell["shape"])],
                 **{k: cell[k] for k in (
                     "shape", "ms", "device_ms", "plain_ms", "bound_ms",
-                    "bound_by", "copy_in_ms", "copy_out_ms",
-                    "strided_call_ms")}})
+                    "bound_by", "strided_call_ms", "strided_device_ms",
+                    "strided_out_call_ms", "strided_out_device_ms")}})
             entry["stream_launches_by_shape"] = stream["launches_by_shape"]
             entry["bitwise_on_strided_chunks"] = stream["b1_strided_bitwise"]
         if name in packet["launches"]:
@@ -5259,10 +5334,16 @@ def run(t_start: float) -> int:
                 "launches_by_shape"].get(name, {})
         if on_train:
             # the train path's launches (Qwen3-0.6B's train step, one per
-            # leaf of its aggregation on each rank), by shape
+            # leaf of its aggregation on each rank), by shape, and the
+            # times at its largest leaves
             entry["train_launches"] = on_train
-            entry["train_launches_by_shape"] = train[
-                "launches_by_shape"].get(name, {})
+            by_shape = train["launches_by_shape"].get(name, {})
+            entry["train_launches_by_shape"] = by_shape
+            entry.setdefault("also_at", []).extend(
+                {"launches": by_shape.get(str(t_at["shape"]), 0),
+                 **{k: t_at[k] for k in ("shape", "ms", "device_ms",
+                                         "plain_ms", "bound_ms", "bound_by")}}
+                for t_at in timing.get(f"train_{name}", []))
         if name in sweep["launches"]:
             # the sweep path's launches (the smoke, chaos and fig2 grids'
             # fleets and sequential runs, the card-vs-CPU cell), by shape
@@ -5315,7 +5396,8 @@ def run(t_start: float) -> int:
         z.pop("b6", None)
     serve = {k: v for k, v in serve.items() if k != "b6"}
     timed = ("gather_quant", "gather_quant_allreduce", "gather_quant_fl",
-             "stoch_quant", "vote_pack", "pack", "unpack", "popcount_accum")
+             "stoch_quant", "vote_pack", "pack", "unpack", "popcount_accum",
+             "train_gather_quant", "train_vote_pack", "train_popcount_accum")
     from repro_torch.launch.mesh import DEVICE
     summary = {"build": build, "cpu_side_s": SIDE.seconds,
                "bounds_use_figures_of": DEVICE,

@@ -38,9 +38,13 @@ overwrite the input in place, since phase 1 has finished reading it and a
 chunk computes its residual before writing its own columns.
 
 With the kernels on, each chunk is one launch of B1 ``gather_quant`` at
-``[N, chunk]`` (:func:`repro_torch.kernels.ops.gather_quant_chunk`).  Its
-wrapper copies the strided chunk of the stack to a contiguous operand,
-and the residual it returns is copied into the residual stack.
+``[N, chunk]`` (:func:`repro_torch.kernels.ops.gather_quant_flat`).  For
+a float32 stack it reads the strided column chunk of the stack as it lies
+and writes the residual straight into the chunk's columns of the residual
+stack (``out=``; with ``out=u_stack`` that is the chunk it read, in
+place), so no chunk copies its operands in or its residual out.  Another
+dtype is cast to float32 for the launch and its residual cast back and
+copied.
 
 ``vote_chunk > 1`` is not streamed; that mode keeps the monolithic engine.
 """
@@ -132,17 +136,22 @@ def _phase1_topk(u_stack: torch.Tensor, cfg, vote_keys: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _topk_chunk(u_c, cfg, f, q_keys, plan: RoundPlan, uq_all, start: int,
-                d: int):
+                d: int, res_c):
     """One chunk of top-k phase 2 for all clients: ``(q, residual)``, both
     ``[N, size]``.  ``q`` is 0 wherever the coordinate is not a kept
     consensus coordinate, and equals the compact buffer's entry at that
-    coordinate's slot elsewhere."""
+    coordinate's slot elsewhere.  The fused path on a float32 stack
+    (row-major, as stacks are) writes the residual into ``res_c``, the
+    chunk's columns of the residual stack, and returns it."""
     size = u_c.shape[1]
     dt = u_c.dtype
     sel_c = plan.sel[start:start + size]
     if uq_all is None:   # fused: B1 on the slice of the d-sized stream
         uni = uniform_block(q_keys, start, size, d)
-        q, res = kops.gather_quant_chunk(u_c.to(torch.float32), uni, sel_c, f)
+        if dt == torch.float32 and u_c.stride(1) == 1 == res_c.stride(1):
+            return kops.gather_quant_flat(u_c, uni, sel_c, f, out=res_c)
+        q, res = kops.gather_quant_flat(
+            u_c.to(torch.float32).contiguous(), uni, sel_c, f)
         return q, res.to(dt)
     uni = uq_all.index_select(1, plan.slot[start:start + size])
     keep_c = sel_c.to(torch.float32)
@@ -175,11 +184,14 @@ def _compress_chunks(u_stack, cfg, f, q_keys, plan: RoundPlan, chunk: int,
         uq_all = prng.uniform(q_keys, (plan.capacity,))
     for start in range(0, d, chunk):
         u_c = u_stack[:, start:start + chunk]
+        res_c = residuals[:, start:start + chunk]
         if block:
             q, res = _block_chunk(u_c, f, q_keys, plan, start, d)
         else:
-            q, res = _topk_chunk(u_c, cfg, f, q_keys, plan, uq_all, start, d)
-        residuals[:, start:start + chunk] = res
+            q, res = _topk_chunk(u_c, cfg, f, q_keys, plan, uq_all, start, d,
+                                 res_c)
+        if res is not res_c:
+            res_c.copy_(res)
         yield start, u_c.shape[1], q
 
 

@@ -36,8 +36,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: source name -> its C entry points as (name, argtypes)
 SOURCES = {
     "quant": (
-        ("repro_gather_quant", [ctypes.c_void_p] * 6
-         + [ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]),
+        ("repro_gather_quant", [ctypes.c_void_p, ctypes.c_int64,
+                                ctypes.c_void_p, ctypes.c_int64]
+         + [ctypes.c_void_p] * 4
+         + [ctypes.c_int64] * 3 + [ctypes.c_void_p]),
         ("repro_stoch_quant", [ctypes.c_void_p] * 4
          + [ctypes.c_int64, ctypes.c_void_p]),
     ),

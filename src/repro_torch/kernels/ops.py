@@ -23,8 +23,8 @@ from .stoch_quant import stoch_quant
 from .vote_pack import vote_pack
 from .vote_popcount import popcount_accum
 
-__all__ = ["quantize_flat", "gather_quant_flat", "gather_quant_chunk",
-           "pack_votes", "unpack_votes", "count_votes", "pack_votes_threshold"]
+__all__ = ["quantize_flat", "gather_quant_flat", "pack_votes", "unpack_votes",
+           "count_votes", "pack_votes_threshold"]
 
 
 def _scalar_f(f, like: torch.Tensor) -> torch.Tensor:
@@ -39,20 +39,16 @@ def quantize_flat(u: torch.Tensor, uniforms: torch.Tensor, f) -> torch.Tensor:
 
 
 def gather_quant_flat(u: torch.Tensor, uniforms: torch.Tensor,
-                      sel: torch.Tensor, f):
+                      sel: torch.Tensor, f, *, out: torch.Tensor | None = None):
     """Fused phase-2 client round: ``(u [N, L] or [L], uniforms like u,
-    shared sel uint8 [L], f) -> (q_dense int32, residual float32)``."""
-    return gather_quant(u, uniforms, sel, _scalar_f(f, u))
-
-
-def gather_quant_chunk(u_chunk: torch.Tensor, uniforms_chunk: torch.Tensor,
-                       sel_chunk: torch.Tensor, f):
-    """The streaming engine's phase-2 step: all N clients' ``[N, L]``
-    coordinate chunk of one round in one launch.  The kernel is
-    elementwise, so a chunk equals the same slice of one full-width call,
-    given the slice of the full-width uniform draw
-    (:func:`repro_torch.core.streams.uniform_block`)."""
-    return gather_quant_flat(u_chunk, uniforms_chunk, sel_chunk, f)
+    shared sel uint8 [L], f) -> (q_dense int32, residual float32)``, the
+    residual written into ``out`` when given (``u`` itself included).
+    The kernel is elementwise and takes row-strided views, so the stream
+    engine's ``[N, chunk]`` column chunk of a round goes in as it lies,
+    with the slice of the full-width uniform draw
+    (:func:`repro_torch.core.streams.uniform_block`) and the chunk's slot
+    of the residual stack as ``out``."""
+    return gather_quant(u, uniforms, sel, _scalar_f(f, u), out=out)
 
 
 def pack_votes(mask_flat: torch.Tensor) -> torch.Tensor:

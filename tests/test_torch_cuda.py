@@ -120,6 +120,54 @@ def test_gather_quant_strided_chunk_on_card(cuda_device):
     assert _same(qk, qp) and _same(rk, rp)
 
 
+def _view_case(case: str, device):
+    """B1's operands for one layout: ``(u, uniforms, sel, out)``."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+
+    def arr(shape, uniform=False):
+        a = (rng.random(shape, dtype=np.float32) if uniform else
+             (rng.standard_normal(shape) ** 3).astype(np.float32))
+        return torch.from_numpy(a).to(device)
+
+    def mask(cols):
+        return torch.from_numpy((rng.random(cols) < 0.05).astype(np.uint8)
+                                ).to(device)
+
+    if case == "one_row":            # the train path's leaves: [1, L]
+        cols = (1 << 24) + 3
+        return arr((1, cols)), arr((1, cols), True), mask(cols), None
+    if case == "fl_stack":           # rows 8 bytes apart from a boundary
+        return arr((20, 21_322)), arr((20, 21_322), True), mask(21_322), None
+    # column views of an [8, 300,000] stack, 1-3 columns off a 16-byte
+    # boundary, an odd width; sel a view at the same start or its own
+    start, cols = int(case[-1]) if case[-1].isdigit() else 2, 100_001
+    u = arr((8, 300_000))[:, start:start + cols]
+    uni = arr((8, 300_000), True)[:, start:start + cols]
+    sel = mask(cols) if "own_sel" in case else mask(300_000)[start:start + cols]
+    return u, uni, sel, (u if case == "in_place" else None)
+
+
+@pytest.mark.parametrize("case", ["start_1", "start_2", "start_3",
+                                  "own_sel_start_1", "own_sel_start_3",
+                                  "in_place", "one_row", "fl_stack"])
+def test_gather_quant_views_on_card(cuda_device, case):
+    """B1 on the layouts its paths and callers give it, one launch each,
+    bitwise its plain version: column views off a 16-byte boundary with an
+    odd width (rows of u, the uniforms and q at different offsets, so some
+    rows take the vector path and some the scalar one), the residual
+    written into u itself, one row of 2^24 + 3, and the FL loop's
+    [20, 21,322] stack."""
+    u, uni, sel, out = _view_case(case, cuda_device)
+    f = torch.tensor(37.0, device=cuda_device) / u.abs().max()
+    qp, rp = gather_quant.gather_quant_plain(u.clone(), uni, sel, f)
+    before = gather_quant.gather_quant.launches
+    qk, rk = gather_quant.gather_quant(u, uni, sel, f, out=out)
+    torch.cuda.synchronize()
+    assert gather_quant.gather_quant.launches == before + 1
+    assert out is None or rk is out
+    assert _same(qk, qp) and _same(rk, rp)
+
+
 @pytest.mark.parametrize("kernels", [False, True])
 @pytest.mark.parametrize("vote_mode,compact_mode", [("topk", "topk"),
                                                     ("threshold", "block")])

@@ -127,3 +127,77 @@ def test_wrappers_reject_bad_operands():
                                   torch.tensor(1.0))
     with pytest.raises(ValueError):
         stoch_quant.stoch_quant(u, torch.zeros(2, 7), torch.tensor(1.0))
+
+
+def _strided(base: np.ndarray, start: int, cols: int) -> torch.Tensor:
+    """Columns ``[start, start + cols)`` of a row-major array, as a view
+    with the array's row stride."""
+    return torch.from_numpy(base)[:, start:start + cols]
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+@pytest.mark.parametrize("start", [1, 2, 3])
+@pytest.mark.parametrize("n", [1, 3])
+def test_gather_quant_out_on_strided_views(n, start, in_place):
+    """B1's residual written into a caller's view (``out=``), on views 1-3
+    columns off a 16-byte boundary with an odd width, N = 1 and 3 rows, out
+    of place and into u itself: bitwise the plain call without ``out`` and
+    the reference's Pallas kernel (interpret mode), row by row, with the
+    columns around the view untouched."""
+    rng = np.random.default_rng(100 * n + 10 * start + in_place)
+    cols, f = 1001, 117.5
+    width = start + cols + 5
+    u_base = (rng.standard_normal((n, width)) * 3).astype(np.float32)
+    uni_base = rng.random((n, width + 2), dtype=np.float32)
+    sel = torch.from_numpy((rng.random(cols) < 0.3).astype(np.uint8))
+    u = _strided(u_base.copy(), start, cols)
+    uni = _strided(uni_base, 2, cols)
+    assert u.stride() == (width, 1)
+    q_want, res_want = gather_quant.gather_quant_plain(
+        u.clone(), uni, sel, torch.tensor(f))
+    at = start if in_place else 3 - start % 3
+    out = u if in_place else _strided(
+        np.full((n, width + 3), np.nan, dtype=np.float32), at, cols)
+    around = out._base.clone()
+    q, res = ops.gather_quant_flat(u, uni, sel, f, out=out)
+    assert res is out
+    np.testing.assert_array_equal(q.numpy(), q_want.numpy())
+    np.testing.assert_array_equal(_bits(out.numpy()), _bits(res_want.numpy()))
+    outside = torch.ones(around.shape, dtype=torch.bool)
+    outside[:, at:at + cols] = False
+    assert torch.equal(out._base[outside].view(torch.int32),
+                       around[outside].view(torch.int32))
+    for i in range(n):
+        qj, rj = jops.gather_quant_flat(
+            jnp.asarray(u_base[i, start:start + cols]),
+            jnp.asarray(uni_base[i, 2:2 + cols]), jnp.asarray(sel.numpy()), f,
+            interpret=True)
+        np.testing.assert_array_equal(q[i].numpy(), np.asarray(qj))
+        np.testing.assert_array_equal(_bits(out[i].numpy()), _bits(rj))
+
+
+def test_gather_quant_rejects_bad_views():
+    """Column strides other than 1, and an ``out`` that shares memory with
+    the operands other than as u itself, raise on every device."""
+    base = torch.zeros(3, 40)
+    u, uni = base[:, 1:17], torch.zeros(3, 16)
+    sel, f = torch.zeros(16, dtype=torch.uint8), torch.tensor(2.0)
+    gather_quant.gather_quant(u, uni, sel, f, out=u)              # in place
+    gather_quant.gather_quant(u, uni, sel, f,
+                              out=torch.zeros(3, 40)[:, 20:36])  # elsewhere
+    bad_columns = [(base[:, ::2][:, :16], uni, sel, None),
+                   (u, torch.zeros(3, 32)[:, ::2], sel, None),
+                   (u, uni, torch.zeros(32, dtype=torch.uint8)[::2], None),
+                   (u, uni, sel, torch.zeros(3, 32)[:, ::2])]
+    for a, b, s, o in bad_columns:
+        with pytest.raises(ValueError, match="column stride"):
+            gather_quant.gather_quant(a, b, s, f, out=o)
+    overlapping = [base[:, 2:18],                    # u shifted one column
+                   base[:, :16],                     # u one column back
+                   base[:, 20:36],                   # between u's rows
+                   uni,                              # the uniforms
+                   torch.zeros(1, 16).expand(3, 16),  # rows on one another
+                   torch.zeros(3, 16, dtype=torch.float64)]
+    for o in overlapping:
+        with pytest.raises(ValueError, match="out"):
+            gather_quant.gather_quant(u, uni, sel, f, out=o)

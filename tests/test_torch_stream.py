@@ -277,13 +277,20 @@ def test_stream_compress_stack(vote_mode, compact_mode, kernels):
 # the residual buffer: out of place, into a buffer, in place
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("vote_mode,compact_mode,kernels",
-                         [("topk", "topk", False), ("topk", "topk", True),
-                          ("threshold", "block", False)])
-def test_out_in_place_equals_out_of_place(vote_mode, compact_mode, kernels):
+@pytest.mark.parametrize("vote_mode,compact_mode,kernels,d", [
+    pytest.param("topk", "topk", False, 7000, id="topk-topk-False"),
+    pytest.param("topk", "topk", True, 7000, id="topk-topk-True"),
+    pytest.param("threshold", "block", False, 7000,
+                 id="threshold-block-False"),
+    # an odd d: B1's chunks start off 16-byte boundaries, ragged last chunk
+    pytest.param("topk", "topk", True, 7001, id="topk-topk-True-odd-d")])
+def test_out_in_place_equals_out_of_place(vote_mode, compact_mode, kernels,
+                                          d):
     cfg = _cfg(fediac, vote_mode, compact_mode, kernels)
-    u, key = torch.from_numpy(_u(5, 7000, seed=8)), key_to_torch(KEY)
+    u, key = torch.from_numpy(_u(5, d, seed=8)), key_to_torch(KEY)
     want = stream_engine.aggregate_stream(u, cfg, key, chunk=1024)
+    if kernels:
+        _assert_rounds_equal(want, fediac.aggregate_stack(u, cfg, key))
     buf = torch.full_like(u, float("nan"))
     into = stream_engine.aggregate_stream(u, cfg, key, chunk=1024, out=buf)
     assert into[1] is buf
@@ -294,6 +301,37 @@ def test_out_in_place_equals_out_of_place(vote_mode, compact_mode, kernels):
                                              out=u_in)
     assert inplace[1].data_ptr() == ptr and u_in.data_ptr() == ptr
     _assert_rounds_equal(inplace, want)
+
+
+@pytest.mark.parametrize("in_place", [False, True])
+def test_fused_chunks_write_residual_views(monkeypatch, in_place):
+    """With the kernels on, a float32 stack's chunks go to B1 as the
+    stack's own column views, the residual written into the residual
+    stack's columns (``out=``): no copy in, no copy out."""
+    from repro_torch.kernels import ops as kops
+    n, d, chunk = 4, 5003, 1024
+    u, key = torch.from_numpy(_u(n, d, seed=9)), key_to_torch(KEY)
+    cfg = _cfg(fediac, kernels=True)
+    want = fediac.aggregate_stack(u, cfg, key)
+    u_in = u.clone()
+    residuals = u_in if in_place else torch.empty_like(u)
+    calls, real = [], kops.gather_quant_flat
+
+    def spy(u_c, uni, sel, f, *, out=None):
+        calls.append((u_c.data_ptr(), u_c.stride(), out))
+        return real(u_c, uni, sel, f, out=out)
+
+    monkeypatch.setattr(kops, "gather_quant_flat", spy)
+    got = stream_engine.aggregate_stream(u_in, cfg, key, chunk=chunk,
+                                         out=residuals)
+    starts = range(0, d, chunk)
+    assert len(calls) == len(starts)
+    for (ptr, stride, out), start in zip(calls, starts):
+        assert ptr == u_in[:, start:].data_ptr() and stride == (d, 1)
+        assert out.data_ptr() == residuals[:, start:].data_ptr()
+        assert out.stride() == (d, 1)
+    assert got[1] is residuals
+    _assert_rounds_equal(got, want)
 
 
 def test_out_must_match_the_stack():
