@@ -9,12 +9,13 @@ Phases, each of which raises (and exits non-zero) on failure:
 
 1. card: name and power limit, as ``nvidia-smi`` reports them;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (``quant.cu``, ``votes.cu`` and ``attention.cu``, one ``nvcc`` each, all
-   started together); the FediAC phases wait for the first two only, and
-   the attention library goes on compiling beside them until the stream
-   path has run; then count the HGMMA (tensor-core) instructions in its
-   SASS (``cuobjdump``), which must be more than 0, and read the
-   registers and spills of B6's float32 instances;
+   (``quant.cu``, ``votes.cu``, ``attention.cu`` and ``attention_bwd.cu``,
+   one ``nvcc`` each, all started together); the FediAC phases wait for
+   the first two only, and the attention libraries go on compiling beside
+   them until the stream path has run; then count the HGMMA (tensor-core)
+   instructions in B6's SASS (``cuobjdump``), which must be more than 0,
+   and read the registers and spills of B6's float32 instances and of its
+   backward's (none may spill);
 3. kernel parity: each kernel against its plain-torch version on the card,
    at the main paths' shapes and at ragged / edge cases: bitwise for the
    six FediAC kernels; for B6 ``flash_attention`` (after the stream
@@ -194,8 +195,11 @@ Phases, each of which raises (and exits non-zero) on failure:
    equal its own greedy decode;
 17. train path (``phase_train``, after the NCCL rank): 2 gloo ranks on the
    card, one client each, run Qwen3-0.6B's FediAC train step at full
-   width and depth (random weights from ``PRNGKey(0)``; 4 x 2,048 tokens
-   per client, E = 4, ``microbatch`` 4, bf16 compute) through
+   width and depth (random weights from ``PRNGKey(0)``; 4 x 4,096 tokens
+   per client, ``TRAIN_4K``'s length, above ``DENSE_MAX_SEQ``, so every
+   attention layer runs B6 forward and, through its autograd.Function,
+   B6's backward (``flash_bwd_dot``, ``flash_bwd_dkdv``, ``flash_bwd_dq``
+   of ``attention_bwd.cu``); E = 4, ``microbatch`` 4, bf16 compute) through
    ``training.dist_step.make_train_step`` with ``granularity="tensor"``
    and the kernels on: 3 steps of the default FediACConfig (B1 once per
    leaf), then one each of the allreduce path's configs A (B3 + B5) and B
@@ -204,24 +208,39 @@ Phases, each of which raises (and exits non-zero) on failure:
    on the first step of each config, every leaf's mean within eight
    float32 ulps of the averaged ``u + res - new_res``; the counts zeroed
    before each step and read after rise by exactly one per leaf (13) for
-   each kernel on that config's path and by 0 for the others; every one
-   of those launches followed by its plain version on the same operands
-   on the card, bitwise (left out of the times, the idle share and the
-   peak).  Step time (slowest rank, median of the 3 default steps; the
-   third profiled for the card's idle share) split into local update and
-   aggregation, client tokens/s and peak memory per rank are printed.
-   Before those steps the same ranks run the check step (2 layers,
-   float32, 1 x 256 tokens, E = 1; its launches held to plain as above,
-   the embedding's included): its loss against 2 CPU ranks' within 1e-5
-   relative, and the card's aggregate replayed on the CPU (beside the
-   card's steps) bitwise for every leaf but the 155.6M-coordinate
-   embedding.  Last, a forward at S = 4,096 under autograd must make B6
-   raise (it has no backward).
+   each FediAC kernel on that config's path and by 0 for the others, and
+   B6's by 896 forward (28 layers x 4 microbatches x 4 local steps, twice
+   under remat) and 448 backward launches per rank; every FediAC launch
+   followed by its plain version on the same operands on the card,
+   bitwise (left out of the times, the idle share and the peak).  Step
+   time (slowest rank, median of the 3 default steps; the third profiled
+   for the card's idle share) split into local update and aggregation,
+   client tokens/s, peak memory per rank and the step's share of the
+   bf16 peak (the dry-run's model FLOPs of the tokens it trains) are
+   printed.  Before those steps the same ranks run two check steps (2
+   layers, float32, E = 1; 1 x 256 tokens, the dense branch, and 1 x
+   2,304 tokens with q blocks of 1,152, B6 forward and backward; their
+   FediAC launches held to plain as above, the embedding's included):
+   each one's loss against 2 CPU ranks' (the CPU's blockwise scan above
+   ``DENSE_MAX_SEQ``) within 1e-5 relative, every update leaf within 1e-4
+   of its largest |u|, and the card's aggregate replayed on the CPU
+   (beside the card's steps) bitwise for every leaf but the
+   155.6M-coordinate embedding.  Last, B6's backward held to autograd
+   through ``flash_attention_plain`` on the card at Qwen3-0.6B's train
+   layer (bf16 and float32), granite's D = 64, MLA's 192 / 128, hymba's
+   window of 2,048 and whisper's 448 x 1,500 cross shape: dq, dk and dv
+   within 1e-4 (f32) / 2e-2 (bf16) of each one's largest |g|, two runs
+   bitwise equal, each timed beside its bound, its plain version and
+   SDPA's backward.
 
 The CPU references of the checks, the comparison (baselines and robust
 closes) and the lossy packet round run in a spawned process on half the
 host's cores, beside the card's phases, and their gates when it is
-settled, before the train path; so do the zoo's CPU prefills (each
+settled, before the train path; first of all there, Qwen3-0.6B's dry-run
+(``repro_torch.launch.dryrun.run_one`` on meta tensors at
+``train_4k``, ``prefill_32k`` and ``decode_32k``), whose model FLOPs give
+the train and serve phases' share of the bf16 peak; so do the zoo's CPU
+prefills (each
 family's but DeepSeek-V2's, whose 7.3 GiB model runs them in place),
 once every family's timed model has run, their gates at the zoo's end.
 Each gate is the one the phase ran before, and raises as it did.
@@ -510,10 +529,11 @@ def phase_build() -> dict:
 
 
 def phase_build_attention(b: dict) -> None:
-    """Wait for the attention library that :func:`phase_build` started."""
+    """Wait for the attention libraries (B6's forward and its backward)
+    that :func:`phase_build` started."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    b["seconds"].update(build.finish(("attention",)))
+    b["seconds"].update(build.finish(("attention", "attention_bwd")))
     b["wait_s"] += time.perf_counter() - t0
     b["wall_s"] = time.perf_counter() - b.pop("t0")
     log(f"[build] {b['seconds']} ({b['wait_s']:.1f} s waited of "
@@ -565,6 +585,40 @@ def simt_resources() -> dict:
             name = None
     log(f"[build] flash_fwd_simt resources per thread: {out}")
     check(len(out) == 6, f"expected 6 float32 B6 instances, read {out}")
+    return out
+
+
+def bwd_resources() -> dict:
+    """Registers and spilled (local) bytes a thread of each instance of
+    B6's backward kernels uses (``cuobjdump -res-usage`` of the built
+    library); none may spill."""
+    import os
+    import re
+    from repro_torch.kernels import build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-res-usage",
+                           str(build._lib_path("attention_bwd"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        fn = re.search(r"Function\s+\S*(flash_bwd_\w+?)I(\w+?)Li(\d+)ELi(\d+)E"
+                       r"\S*:", line)
+        if fn:
+            name = "{}<{}, {}, {}>".format(fn.group(1), "bf16" if "bfloat"
+                                           in fn.group(2) else "f32",
+                                           fn.group(3), fn.group(4))
+            continue
+        use = re.search(r"REG:(\d+)\s+STACK:\d+\s+SHARED:\d+\s+LOCAL:(\d+)",
+                        line)
+        if name and use:
+            out[name] = dict(zip(("registers", "local"),
+                                 map(int, use.groups())))
+            name = None
+    log(f"[build] B6 backward resources per thread: {out}")
+    check(len(out) >= 16 and all(v["local"] == 0 for v in out.values()),
+          f"B6 backward instances missing or spilling: {out}")
     return out
 
 
@@ -714,6 +768,12 @@ def _fl_setup():
 
 #: the run's :class:`_CpuSide`, made by :func:`main`
 SIDE = None
+#: Qwen3-0.6B's dry-run records (``repro_torch.launch.dryrun.run_one``) by
+#: shape, computed on the CPU side (meta tensors) and filled in when it is
+#: settled; their model FLOPs give the train and serve phases' share of
+#: the bf16 peak
+DRYRUN: dict = {}
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 
 
 def _side_init(src: str, threads: int) -> None:
@@ -810,6 +870,26 @@ class _CpuSide:
             proc.terminate()
         self.pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _dryrun_records(shapes) -> dict:
+    """Qwen3-0.6B's dry-run record at each of ``shapes`` (run in the side
+    process)."""
+    from repro_torch.launch import dryrun
+    return {shape: dryrun.run_one(QWEN, shape) for shape in shapes}
+
+
+def _dryrun_gate(res: dict, seconds: float) -> None:
+    for shape, rec in res.items():
+        check("error" not in rec and rec["model_flops"] > 0
+              and rec["params_total"] == QWEN_PARAMS,
+              f"dry-run of {QWEN} at {shape}: {rec}")
+    DRYRUN.update(res)
+    log(f"[dryrun] {QWEN}: " + "; ".join(
+        f"{k} model FLOPs {r['model_flops']:.4g}, {r['flops_per_device']:.4g}"
+        f" FLOPs and {r['hbm_bytes_per_device']:.4g} bytes per device, "
+        f"{r['dominant']}-bound" for k, r in res.items())
+        + f" ({seconds:.1f} s on the CPU side)")
 
 
 def _to_host(x):
@@ -4066,6 +4146,20 @@ def phase_serve() -> dict:
     # B6's instances: bf16 (tensor cores) at the 32k layer, the main path;
     # float32 (FFMA over a TMA ring) at the check prefill's layer
     from repro_torch.launch.mesh import PEAK_FLOPS_BF16, PEAK_FLOPS_FP32
+    # the dry-run's model FLOPs (2 x active parameters a token) of this
+    # prefill's tokens and of one tick of the 16-slot engine, over their
+    # times, as shares of the bf16 peak
+    pf, dc = DRYRUN["prefill_32k"], DRYRUN["decode_32k"]
+    out["prefill_model_flops"] = (pf["model_flops"] / pf["tokens"]
+                                  * PREFILL_BATCH * PREFILL_SEQ)
+    out["prefill_bf16_peak_share"] = (out["prefill_model_flops"]
+                                      / (out["prefill_ms"] / 1e3)
+                                      / PEAK_FLOPS_BF16)
+    out["decode_bf16_tick_model_flops"] = (dc["model_flops"] / dc["tokens"]
+                                           * TIMED_SLOTS)
+    out["decode_bf16_peak_share"] = (out["decode_bf16_tick_model_flops"]
+                                     / (out["decode_bf16_tick_ms"] / 1e3)
+                                     / PEAK_FLOPS_BF16)
     out["b6"] = {
         "bfloat16": time_b6(q, k, v, kw, PEAK_FLOPS_BF16, out["launches"],
                             graph=dict(launches=5, replays=2)),
@@ -4074,8 +4168,10 @@ def phase_serve() -> dict:
                            graph=dict(launches=10, replays=3))}
     out["b6_share_of_prefill"] = (out["b6"]["bfloat16"]["device_ms"]
                                   * cfg.n_layers / out["prefill_ms"])
-    log(f"[serve timing] B6 bf16 at the 32k layer: "
-        f"{out['b6']['bfloat16']['device_ms']:.3f} ms on the device, "
+    log(f"[serve timing] prefill {out['prefill_ms']:.1f} ms, "
+        f"{out['prefill_bf16_peak_share']:.4f} of the bf16 peak; decode "
+        f"tick {out['decode_bf16_peak_share']:.6f}; B6 bf16 at the 32k "
+        f"layer: {out['b6']['bfloat16']['device_ms']:.3f} ms on the device, "
         f"{out['b6']['bfloat16']['tflops']:.1f} TFLOP/s on the reference "
         f"FLOPs ({out['b6']['bfloat16']['library_ms']:.3f} ms SDPA)")
     log("[serve timing] " + json.dumps(out))
@@ -4494,7 +4590,9 @@ def phase_zoo() -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_RANKS = 2                   # clients, one gloo rank each, on the card
-TRAIN_ROWS, TRAIN_SEQ = 4, 2048   # per-client batch; 2,048 = DENSE_MAX_SEQ
+#: per-client batch: 4 rows of TRAIN_4K's 4,096 tokens (configs/base.py),
+#: above DENSE_MAX_SEQ, so every attention layer runs B6 forward and back
+TRAIN_ROWS, TRAIN_SEQ = 4, 4096
 TRAIN_LR = 1e-2                   # make_train_step's default
 TRAIN_SCHEDULE = ("default", "default", "default", "A", "B")
 #: the steps whose every leaf is held to the conservation bound: the first
@@ -4505,10 +4603,27 @@ TRAIN_LEAVES = 13                 # Qwen3-0.6B's reference tree (gated)
 #: the kernels each config's aggregation launches, once per leaf
 TRAIN_PATH_KERNELS = {"default": ("gather_quant",), **AR_PATH_KERNELS}
 TRAIN_KERNELS = ("gather_quant", "vote_pack", "pack", "popcount_accum")
-TRAIN_CHECK_LAYERS = 2            # the card-vs-CPU step: 2 layers, float32,
-TRAIN_CHECK_ROWS, TRAIN_CHECK_SEQ = 1, 256   # 1 x 256 tokens per client, E=1
-TRAIN_CHECK_RTOL = 1e-5           # its loss against the CPU's
-TRAIN_B6_SEQ = 4096               # a forward above DENSE_MAX_SEQ under autograd
+TRAIN_CHECK_LAYERS = 2            # the card-vs-CPU steps: 2 layers, float32,
+TRAIN_CHECK_ROWS = 1              # 1 row per client, E = 1, at each of
+#: these sequence lengths (and config changes): the dense branch, and the
+#: blockwise one above DENSE_MAX_SEQ (B6 forward and backward on the card
+#: against the CPU's blockwise scan, q blocks of 1,152 as ZOO_CHECK_SEQ)
+TRAIN_CHECKS = {"256": (256, {}), "2304": (2_304, dict(attn_q_block=1_152))}
+TRAIN_CHECK_RTOL = 1e-5           # their loss against the CPU's
+TRAIN_CHECK_GRAD_TOL = 1e-4       # each update leaf, of its largest |u|
+#: B6's backward held to autograd through its plain forward on the card:
+#: (name, q shape, KV heads, Dv, causal, window, T, dtypes): Qwen3-0.6B's
+#: train layer, granite's head size, MLA's 192 / 128, hymba's window,
+#: whisper's cross shape (448 queries over 1,500 frames)
+B6_BWD_CASES = (
+    ("qwen3", (1, 4096, 16, 128), 8, 128, True, 0, 4096,
+     ("bfloat16", "float32")),
+    ("granite", (1, 4096, 16, 64), 8, 64, True, 0, 4096, ("bfloat16",)),
+    ("mla", (1, 4096, 16, 192), 16, 128, True, 0, 4096, ("bfloat16",)),
+    ("hymba", (1, 4096, 25, 64), 5, 64, True, 2048, 4096, ("bfloat16",)),
+    ("cross", (2, 448, 6, 64), 6, 64, False, 0, 1500, ("bfloat16",)),
+)
+B6_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of each gradient's max
 #: the check step's leaves the CPU aggregates again, by size: not the
 #: embedding, whose 155.6M coordinates of threefry took the host's CPU
 #: 200 s of a 243 s replay (PERF.md section 6)
@@ -4691,36 +4806,48 @@ def _train_batches(vocab: int, rows: int, seq: int, n: int, seed: int) -> list:
     return list(lm_batches(np.random.default_rng(seed), vocab, rows, seq, n))
 
 
-def _train_check_step(rank: int, world: int, tmp: str, mesh) -> tuple:
-    """The card's side of the check step: Qwen3-0.6B at full width cut to
-    TRAIN_CHECK_LAYERS layers, float32, E = 1, one step, every kernel
-    launch held to its plain version on the card (:class:`_HeldToPlain`),
-    the embedding's included; its weights (rank 0) and each rank's update,
-    mean and new residual go to ``tmp`` for the CPU's replay.  Returns the
-    step's loss, the launches held to plain and those that differed."""
+def _check_cfg(tag: str):
+    """Qwen3-0.6B at full width cut to TRAIN_CHECK_LAYERS layers, float32,
+    E = 1, with check ``tag``'s changes: (cfg, sequence length)."""
+    seq, kw = TRAIN_CHECKS[tag]
+    return _train_cfgs(n_layers=TRAIN_CHECK_LAYERS, compute_dtype="float32",
+                       fl_local_steps=1, **kw)["default"], seq
+
+
+def _train_check_step(rank: int, world: int, tmp: str, mesh, tag: str) -> dict:
+    """The card's side of check step ``tag`` (:func:`_check_cfg`): one
+    step, every FediAC kernel launch held to its plain version on the card
+    (:class:`_HeldToPlain`), the embedding's included; its weights (rank
+    0) and each rank's update, mean and new residual go to ``tmp`` for the
+    CPU's replay.  Returns the step's loss, the launches held to plain and
+    those that differed, and B6's forward and backward launches."""
     import torch
     from repro_torch.core import prng
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import init_params
     from repro_torch.training import dist_step
-    cfg = _train_cfgs(n_layers=TRAIN_CHECK_LAYERS, compute_dtype="float32",
-                      fl_local_steps=1)["default"]
+    cfg, seq = _check_cfg(tag)
     params = init_params(cfg, prng.PRNGKey(0, device=DEV), device=DEV)
     layout = dist_step.FlatLayout(params)
     if rank == 0:
-        torch.save(layout.gather().cpu(), f"{tmp}/check_params.pt")
-    batch = _train_batches(cfg.vocab, world * TRAIN_CHECK_ROWS,
-                           TRAIN_CHECK_SEQ, 1, 1)[0]
+        torch.save(layout.gather().cpu(), f"{tmp}/check{tag}_params.pt")
+    batch = _train_batches(cfg.vocab, world * TRAIN_CHECK_ROWS, seq, 1, 1)[0]
     bundle = dist_step.make_train_step(cfg, mesh, lr=TRAIN_LR, use_pallas=True)
+    b6 = (fa.flash_attention.launches, fa.flash_attention.backward_launches)
     with _AggRecorder() as rec, _HeldToPlain(TRAIN_KERNELS) as held:
         _, _, metrics = bundle.step(params, torch.zeros(layout.size,
                                                         device=DEV),
                                     batch, prng.PRNGKey(2, device=DEV))
+    b6 = [fa.flash_attention.launches - b6[0],
+          fa.flash_attention.backward_launches - b6[1]]
     (call,) = rec.calls
     replayed = [(o, n) for o, n in layout.spans if n <= TRAIN_REPLAY_MAX]
     torch.save({"update": call["update"].cpu(),
                 **{k: [call[k][o:o + n].cpu() for o, n in replayed]
-                   for k in ("mean", "new_res")}}, f"{tmp}/check{rank}.pt")
-    return float(metrics["loss"]), held.launches, held.bad
+                   for k in ("mean", "new_res")}},
+               f"{tmp}/check{tag}_{rank}.pt")
+    return {"loss": float(metrics["loss"]), "plain_launches": held.launches,
+            "plain_bad": held.bad, "b6_launches": b6}
 
 
 def train_rank(rank: int, world: int, tmp: str) -> dict:
@@ -4734,6 +4861,7 @@ def train_rank(rank: int, world: int, tmp: str) -> dict:
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import prng
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import init_params
     from repro_torch.training import dist_step
@@ -4741,9 +4869,10 @@ def train_rank(rank: int, world: int, tmp: str) -> dict:
     mesh = make_test_mesh()
     t0 = time.perf_counter()
     report = {"rank": rank, "steps": []}
-    (report["check_loss"], report["check_plain_launches"],
-     report["check_plain_bad"]) = _train_check_step(rank, world, tmp, mesh)
-    _free_card()
+    report["checks"] = {}
+    for tag in TRAIN_CHECKS:
+        report["checks"][tag] = _train_check_step(rank, world, tmp, mesh, tag)
+        _free_card()
     dist.barrier()
     if rank == 0:
         Path(f"{tmp}/check_ready").touch()
@@ -4770,6 +4899,7 @@ def train_rank(rank: int, world: int, tmp: str) -> dict:
     for t, name in enumerate(TRAIN_SCHEDULE):
         for c in counters.values():
             c.launches = 0
+        fa.flash_attention.backward_launches = 0
         key, sk = prng.split(key)
         dist.barrier()
         torch.cuda.synchronize()
@@ -4792,6 +4922,8 @@ def train_rank(rank: int, world: int, tmp: str) -> dict:
             wall_ns.append(time.time_ns())
         peak = max(peak, held.peak)
         launches = {k: c.launches for k, c in counters.items()}
+        launches["flash_attention_backward"] = \
+            fa.flash_attention.backward_launches
         (call,) = rec.calls
         t1 = time.perf_counter()
         step = {"config": name, "loss": float(metrics["loss"]),
@@ -4836,12 +4968,18 @@ def train_rank(rank: int, world: int, tmp: str) -> dict:
 
 
 def train_check_rank(rank: int, world: int, tmp: str) -> dict:
-    """One client of the check step on the CPU, from the card's weights:
-    its own local update (loss and update against the card's), then the
-    card's update aggregated again here leaf by leaf, as ``_aggregate``
-    does it (each leaf with its key of ``split(key, leaves)``), against the
-    card's mean and residual bitwise; leaves above TRAIN_REPLAY_MAX
-    coordinates are left out and listed."""
+    """One client of each check step on the CPU (:func:`_check_one`)."""
+    return {tag: _check_one(rank, world, tmp, tag) for tag in TRAIN_CHECKS}
+
+
+def _check_one(rank: int, world: int, tmp: str, tag: str) -> dict:
+    """One client of check step ``tag`` on the CPU, from the card's
+    weights: its own local update (loss and update against the card's; the
+    blockwise branch runs the plain scan here), then the card's update
+    aggregated again here leaf by leaf, as ``_aggregate`` does it (each
+    leaf with its key of ``split(key, leaves)``), against the card's mean
+    and residual bitwise; leaves above TRAIN_REPLAY_MAX coordinates are
+    left out and listed."""
     import os
     import torch
     from repro_torch.core import prng
@@ -4851,23 +4989,21 @@ def train_check_rank(rank: int, world: int, tmp: str) -> dict:
     # its gloo work), running beside
     torch.set_num_threads(max(1, ((os.cpu_count() or 4) - 2 * world)
                               // world))
-    cfg = _train_cfgs(n_layers=TRAIN_CHECK_LAYERS, compute_dtype="float32",
-                      fl_local_steps=1)["default"]
+    cfg, seq = _check_cfg(tag)
     params = init_params(cfg, prng.PRNGKey(0, device="meta"),
                          device="meta").to_empty(device="cpu")
     layout = dist_step.FlatLayout(params)
     with torch.no_grad():
-        for p, w in zip(layout.params,
-                        layout.views(torch.load(f"{tmp}/check_params.pt"))):
+        for p, w in zip(layout.params, layout.views(
+                torch.load(f"{tmp}/check{tag}_params.pt"))):
             p.copy_(w)
-    batch = _train_batches(cfg.vocab, world * TRAIN_CHECK_ROWS,
-                           TRAIN_CHECK_SEQ, 1, 1)[0]
+    batch = _train_batches(cfg.vocab, world * TRAIN_CHECK_ROWS, seq, 1, 1)[0]
     t0 = time.perf_counter()
     update, loss, _ = dist_step._local_update(
         cfg, params, dist_step._rows(batch, rank, TRAIN_CHECK_ROWS, "cpu"),
         TRAIN_LR, layout, 1)
     local_s = time.perf_counter() - t0
-    card = torch.load(f"{tmp}/check{rank}.pt")
+    card = torch.load(f"{tmp}/check{tag}_{rank}.pt")
     err = max(float((card["update"][o:o + n] - update[o:o + n]).abs().max()
                     / update[o:o + n].abs().max())
               for o, n in layout.spans)
@@ -4890,29 +5026,136 @@ def train_check_rank(rank: int, world: int, tmp: str) -> dict:
             "replayed": replayed, "skipped": skipped}
 
 
-def _b6_refuses_autograd() -> dict:
-    """Qwen3-0.6B at full width cut to 2 layers, a forward at
-    TRAIN_B6_SEQ tokens with autograd on: B6 must raise, launching nothing."""
+def _visible_pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs B6's mask leaves visible in one head."""
     import torch
-    from repro_torch.core import prng
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import init_params, loss_fn
-    cfg = _train_cfgs(n_layers=TRAIN_CHECK_LAYERS)["default"]
-    params = init_params(cfg, prng.PRNGKey(0, device=DEV), device=DEV)
-    gen = torch.Generator(device=DEV).manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab, (1, TRAIN_B6_SEQ), device=DEV,
-                           generator=gen)
-    before = fa.flash_attention.launches
+    i = torch.arange(s, dtype=torch.int64)
+    hi = torch.clamp(i + 1, max=t) if causal else torch.full_like(i, t)
+    lo = torch.clamp(i - window + 1, min=0) if window else torch.zeros_like(i)
+    return int((hi - lo).clamp(min=0).sum())
+
+
+def _sdpa_operands(q, k, v, causal: bool, window: int,
+                   grad: bool = False) -> tuple:
+    """SDPA's operands and keywords for B6's, and the (B, H, S, D) views of
+    q, k and v they come from: a boolean mask with the KV heads repeated
+    for a window (the masked kernel takes no grouped heads), else
+    ``is_causal`` and ``enable_gqa``; with ``grad`` the views are leaves
+    that require a gradient."""
+    import torch
+    h, hk = q.shape[2], k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if grad:
+        qt, kt, vt = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
+    if not window:
+        return ((qt, kt, vt), dict(is_causal=causal, enable_gqa=hk != h),
+                (qt, kt, vt))
+    kr, vr = (x.repeat_interleave(h // hk, dim=1) for x in (kt, vt))
+    j = torch.arange(k.shape[1], device=q.device)
+    i = torch.arange(q.shape[1], device=q.device)[:, None]
+    mask = (j[None, :] > i - window) & ((j[None, :] <= i) if causal else True)
+    return (qt, kr, vr), dict(attn_mask=mask), (qt, kt, vt)
+
+
+def _sdpa_backward(q, k, v, g, causal: bool, window: int):
+    """SDPA's backward through autograd on B6's operands
+    (:func:`_sdpa_operands`): a function that runs it once, or None with
+    the reason where SDPA refuses the shapes.  Timed only."""
+    import torch
+    import torch.nn.functional as F
     try:
-        loss_fn(params, cfg, {"tokens": tokens, "targets": tokens})
-        raised = None
-    except NotImplementedError as e:
-        raised = str(e)
-    check(raised is not None and "no backward" in raised,
-          f"B6 ran under autograd at S={TRAIN_B6_SEQ} (it has no backward)")
-    check(fa.flash_attention.launches == before,
-          "B6 launched under autograd")
-    return {"seq": TRAIN_B6_SEQ, "raised": raised}
+        args, kw, leaves = _sdpa_operands(q, k, v, causal, window, grad=True)
+        y = F.scaled_dot_product_attention(*args, **kw)
+        gt = g.transpose(1, 2)
+        run = lambda: torch.autograd.grad(  # noqa: E731
+            y, leaves, gt, retain_graph=True)
+        run()
+        return run, None
+    except (RuntimeError, torch.OutOfMemoryError) as e:
+        _free_card()
+        return None, str(e).splitlines()[0][:200]
+
+
+def phase_b6_backward() -> dict:
+    """B6's backward (``flash_attention_bwd``: ``csrc/attention_bwd.cu``)
+    held to autograd through ``flash_attention_plain`` on the card at each
+    instance of B6_BWD_CASES: dq, dk and dv within B6_BWD_TOL of each
+    one's largest |g|, two runs bitwise equal, then timed: call ms (CUDA
+    events), device ms (a replayed CUDA graph), the plain backward's ms,
+    its bound (6 D + 4 Dv FLOPs per visible pair at the peak of the
+    operands' type, or each input read and each gradient written once) and
+    SDPA's backward through autograd (timed only)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
+                                         PEAK_FLOPS_FP32)
+    out = []
+    for name, (b, s, h, d), hk, dv, causal, window, t, dtypes in B6_BWD_CASES:
+        for dt in dtypes:
+            dtype = getattr(torch, dt)
+            gen = torch.Generator(device=DEV).manual_seed(s + t + d)
+            q, k, v, g = (torch.randn(shape, device=DEV, generator=gen).to(dtype)
+                          for shape in ((b, s, h, d), (b, t, hk, d),
+                                        (b, t, hk, dv), (b, s, h, dv)))
+            kw = dict(causal=causal, window=window)
+            o, lse = fa._launch_forward(q, k, v, causal, window, True)
+            before = fa.flash_attention.backward_launches
+            got = fa.flash_attention_bwd(q, k, v, o, lse, g, **kw)
+            again = fa.flash_attention_bwd(q, k, v, o, lse, g, **kw)
+            torch.cuda.synchronize()
+            where = f"B6 backward {name} {dt}"
+            check(fa.flash_attention.backward_launches == before + 2,
+                  f"{where}: backward launches not counted")
+            check(all(same_bits(x, y) for x, y in zip(got, again)),
+                  f"{where}: two runs differ")
+            xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+            want = torch.autograd.grad(fa.flash_attention_plain(*xs, **kw),
+                                       xs, g)
+            abs_errs = [float((x.float() - w.float()).abs().max())
+                        for x, w in zip(got, want)]
+            errs = [e / float(w.float().abs().max())
+                    for e, w in zip(abs_errs, want)]
+            check(all(e <= B6_BWD_TOL[dt] for e in errs),
+                  f"{where}: dq, dk, dv off autograd through the plain "
+                  f"version by {errs} of their largest |g| > "
+                  f"{B6_BWD_TOL[dt]}")
+            del want, xs, again
+            _free_card()
+            pairs = _visible_pairs(s, t, causal, window)
+            flops = b * h * pairs * (6 * d + 4 * dv)
+            esz = q.element_size()
+            nbytes = esz * (2 * (q.numel() + k.numel() + v.numel())
+                            + 2 * o.numel() + g.numel()) + 4 * lse.numel()
+            t_bytes = nbytes / HBM_BW * 1e3
+            t_ops = flops / (PEAK_FLOPS_BF16 if dt == "bfloat16"
+                             else PEAK_FLOPS_FP32) * 1e3
+            run = lambda: fa.flash_attention_bwd(  # noqa: E731
+                q, k, v, o, lse, g, **kw)
+            rec = dict(instance=name, dtype=dt, shape=[b, s, t, h, hk, d, dv],
+                       causal=causal, window=window, max_rel_err=errs,
+                       max_abs_err=max(abs_errs),
+                       ms=cuda_ms(run, iters=3, warmup=1),
+                       device_ms=graph_ms(run, launches=3, replays=2),
+                       plain_ms=cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                           q, k, v, o, lse, g, **kw), iters=1, warmup=1),
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       flops=flops, bytes=nbytes, visible_pairs_per_head=pairs)
+            rec["tflops"] = flops / rec["device_ms"] / 1e9
+            lib, refused = _sdpa_backward(q, k, v, g, causal, window)
+            rec["library_ms"] = None if lib is None else cuda_ms(
+                lib, iters=3, warmup=0)
+            if refused:
+                rec["library_refused"] = refused
+            del lib
+            out.append(rec)
+            _free_card()
+            log(f"[b6 backward] {where}: within {max(errs):.3g} of autograd "
+                f"through plain, bitwise twice; {rec['device_ms']:.3f} ms dev "
+                f"({rec['ms']:.3f} call), bound {rec['bound_ms']:.4f} "
+                f"({rec['bound_by']}), plain {rec['plain_ms']:.2f}, SDPA "
+                f"{rec['library_ms']}")
+    return out
 
 
 def _cut_spans(spans, holes) -> list:
@@ -4959,11 +5202,13 @@ def _train_idle(reports) -> dict:
 
 def phase_train(card: str) -> dict:
     """The train path: :func:`train_rank` on TRAIN_RANKS spawned ranks on
-    the card, every rank held to the gates; the check step replayed on the
-    CPU (:func:`train_check_rank`, as many ranks) while the card's ranks
-    go on with the full-width steps; B6 refusing autograd."""
+    the card, every rank held to the gates; the check steps replayed on
+    the CPU (:func:`train_check_rank`, as many ranks) while the card's
+    ranks go on with the full-width steps; then B6's backward held to
+    autograd through its plain version (:func:`phase_b6_backward`)."""
     import concurrent.futures
     from repro_torch import testing
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
@@ -4986,8 +5231,13 @@ def phase_train(card: str) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     card_s = time.perf_counter() - t0
-    b6 = _b6_refuses_autograd()
-    launches = {k: 0 for k in _counters()}
+    cfg = _train_cfgs()["default"]
+    # B6 per step and rank: once per attention layer, microbatch and local
+    # step, forward twice under remat (the forward and the recompute)
+    b6_bwd = cfg.n_layers * min(cfg.microbatch, TRAIN_ROWS) \
+        * cfg.fl_local_steps
+    b6_fwd = b6_bwd * (2 if cfg.remat else 1)
+    launches = {k: 0 for k in (*_counters(), "flash_attention_backward")}
     for rep in reports:
         r = rep["rank"]
         check(rep["leaves"] == TRAIN_LEAVES,
@@ -4999,6 +5249,8 @@ def phase_train(card: str) -> dict:
             on_path = TRAIN_PATH_KERNELS[s["config"]]
             want = {k: (TRAIN_LEAVES if k in on_path else 0)
                     for k in s["launches"]}
+            want["flash_attention"] = b6_fwd
+            want["flash_attention_backward"] = b6_bwd
             check(s["launches"] == want, f"{where}: launches rose by "
                   f"{s['launches']}, not {want}")
             check(s["plain_launches"] == {k: want[k] for k in TRAIN_KERNELS}
@@ -5021,19 +5273,44 @@ def phase_train(card: str) -> dict:
               "parameters differ")
         check(all(s["loss"] == steps[0]["loss"] for s in steps),
               f"step {t}: the ranks report different losses")
-    card_loss = reports[0]["check_loss"]
-    cpu_loss = sum(c["loss"] for c in cpu) / len(cpu)
-    check(abs(card_loss - cpu_loss) <= TRAIN_CHECK_RTOL * abs(cpu_loss),
-          f"check step: card loss {card_loss} vs CPU {cpu_loss}")
-    for r, c in enumerate(cpu):
-        check(c["same"], f"check step rank {r}: the card's aggregate "
-              "replayed on the CPU differs")
-    for rep in reports:
-        held = rep["check_plain_launches"]
-        check(held == {k: (TRAIN_LEAVES if k == "gather_quant" else 0)
-                       for k in TRAIN_KERNELS} and not rep["check_plain_bad"],
-              f"check step rank {rep['rank']}: launches held to their plain "
-              f"versions {held}, differing {rep['check_plain_bad']}")
+    checks = {}
+    for tag in TRAIN_CHECKS:
+        c_cfg, seq = _check_cfg(tag)
+        card_loss = reports[0]["checks"][tag]["loss"]
+        cpu_loss = sum(c[tag]["loss"] for c in cpu) / len(cpu)
+        check(abs(card_loss - cpu_loss) <= TRAIN_CHECK_RTOL * abs(cpu_loss),
+              f"check step {tag}: card loss {card_loss} vs CPU {cpu_loss}")
+        for r, c in enumerate(cpu):
+            check(c[tag]["same"], f"check step {tag} rank {r}: the card's "
+                  "aggregate replayed on the CPU differs")
+            check(c[tag]["update_rel_err"] <= TRAIN_CHECK_GRAD_TOL,
+                  f"check step {tag} rank {r}: an update leaf off by "
+                  f"{c[tag]['update_rel_err']} of its largest |u| > "
+                  f"{TRAIN_CHECK_GRAD_TOL}")
+        # B6 per attention layer and microbatch above DENSE_MAX_SEQ (E = 1)
+        n_b6 = (c_cfg.n_layers * min(c_cfg.microbatch, TRAIN_CHECK_ROWS)
+                if seq > 2048 else 0)
+        for rep in reports:
+            got = rep["checks"][tag]
+            held = got["plain_launches"]
+            check(held == {k: (TRAIN_LEAVES if k == "gather_quant" else 0)
+                           for k in TRAIN_KERNELS} and not got["plain_bad"],
+                  f"check step {tag} rank {rep['rank']}: launches held to "
+                  f"their plain versions {held}, differing {got['plain_bad']}")
+            check(got["b6_launches"] == [2 * n_b6, n_b6],
+                  f"check step {tag} rank {rep['rank']}: B6 forward and "
+                  f"backward launched {got['b6_launches']}, not "
+                  f"{[2 * n_b6, n_b6]}")
+        checks[tag] = {
+            "seq": seq, "card_loss": card_loss, "cpu_loss": cpu_loss,
+            "update_rel_err": max(c[tag]["update_rel_err"] for c in cpu),
+            "cpu_local_s": max(c[tag]["local_s"] for c in cpu),
+            "cpu_replay_s": max(c[tag]["replay_s"] for c in cpu),
+            "replayed_coordinates": cpu[0][tag]["replayed"],
+            "skipped_leaves": cpu[0][tag]["skipped"],
+            "b6_launches_per_rank": reports[0]["checks"][tag]["b6_launches"],
+            "aggregate_bitwise": True}
+    b6 = phase_b6_backward()
 
     def slowest(key, steps):
         return sorted(max(rep["steps"][t][key] for rep in reports)
@@ -5042,7 +5319,11 @@ def phase_train(card: str) -> dict:
     default = [t for t, n in enumerate(TRAIN_SCHEDULE) if n == "default"]
     step_ms = slowest("step_ms", default)
     tokens = TRAIN_ROWS * TRAIN_SEQ
-    e = _train_cfgs()["default"].fl_local_steps
+    e = cfg.fl_local_steps
+    # the dry-run's model FLOPs (6 x active parameters per trained token)
+    # for the tokens this step trains on the card: every rank's E passes
+    flops = DRYRUN["train_4k"]["model_flops"] / DRYRUN["train_4k"]["tokens"] \
+        * TRAIN_RANKS * e * tokens
     by_shape = {}
     for rep in reports:
         for name, shapes in rep["launches_by_shape"].items():
@@ -5074,6 +5355,10 @@ def phase_train(card: str) -> dict:
            "profile_top_by_rank": [rep["profile"]["top"] for rep in reports],
            "profile_s": max(rep["profile_s"] for rep in reports),
            "check_s": max(rep["check_s"] for rep in reports),
+           "b6_launches_per_rank_step": {"forward": b6_fwd,
+                                         "backward": b6_bwd},
+           "model_flops": flops,
+           "bf16_peak_share": flops / (step_ms / 1e3) / PEAK_FLOPS_BF16,
            "client_tokens_per_s": tokens / step_ms * 1e3,
            "client_trained_tokens_per_s": e * tokens / step_ms * 1e3,
            "peak_gib_per_rank": max(rep["peak_gib"] for rep in reports),
@@ -5089,28 +5374,25 @@ def phase_train(card: str) -> dict:
                                       for rep in reports)
                                   for t in range(len(TRAIN_SCHEDULE))],
            "init_s": max(rep["init_s"] for rep in reports),
-           "check": {"card_loss": card_loss, "cpu_loss": cpu_loss,
-                     "update_rel_err": max(c["update_rel_err"] for c in cpu),
-                     "cpu_local_s": max(c["local_s"] for c in cpu),
-                     "cpu_replay_s": max(c["replay_s"] for c in cpu),
-                     "replayed_coordinates": cpu[0]["replayed"],
-                     "skipped_leaves": cpu[0]["skipped"],
-                     "aggregate_bitwise": True},
-           "b6_refuses_autograd": b6, "card_s": card_s, "cpu_s": cpu_s,
-           "card": card}
+           "checks": checks, "b6_backward": b6, "card_s": card_s,
+           "cpu_s": cpu_s, "card": card}
     log(f"[train] {card}: {QWEN} full width, {TRAIN_RANKS} clients x "
         f"{TRAIN_ROWS} x {TRAIN_SEQ} tokens, E={e}, granularity tensor, "
         f"kernels on: every gate held; step {step_ms:.1f} ms (local "
         f"{out['local_ms']:.1f}, aggregation {out['aggregate_ms']:.1f}), "
         f"{out['client_tokens_per_s']:.0f} client tokens/s, peak "
         f"{out['peak_gib_per_rank']:.2f} GiB per rank, idle share "
-        f"{out['idle_share']:.3f}; losses "
-        f"{out['losses']}; launches {launches}, each bitwise its plain "
-        f"version ({out['plain_launches']} held, the check step's too); "
-        f"conservation on steps {out['conservation_steps']}; check step "
-        f"card == CPU "
-        f"(loss {card_loss} vs {cpu_loss}); B6 refused autograd "
-        f"({card_s:.1f} s, the CPU replay {cpu_s:.1f} s of it)")
+        f"{out['idle_share']:.3f}, {out['bf16_peak_share']:.4f} of the bf16 "
+        f"peak ({flops:.4g} model FLOPs); losses "
+        f"{out['losses']}; launches {launches} (B6 {b6_fwd} forward, "
+        f"{b6_bwd} backward per rank and step), the FediAC ones each "
+        f"bitwise its plain version ({out['plain_launches']} held, the "
+        f"check steps' too); conservation on steps "
+        f"{out['conservation_steps']}; check steps card == CPU "
+        + "; ".join(f"{t}: loss {c['card_loss']} vs {c['cpu_loss']}, leaves "
+                    f"within {c['update_rel_err']:.3g}"
+                    for t, c in checks.items())
+        + f" ({card_s:.1f} s, the CPU replay {cpu_s:.1f} s of it)")
     return out
 
 
@@ -5132,10 +5414,7 @@ def time_b6(q, k, v, kw, ops_per_s: float, launches: int, *, iters: int = 3,
     b, s, h, d = q.shape
     t, hk, dv = k.shape[1], k.shape[2], v.shape[3]
     causal, window = kw.get("causal", True), kw.get("window", 0)
-    i = torch.arange(s, dtype=torch.int64)
-    hi = torch.clamp(i + 1, max=t) if causal else torch.full_like(i, t)
-    lo = torch.clamp(i - window + 1, min=0) if window else torch.zeros_like(i)
-    pairs = int((hi - lo).clamp(min=0).sum())
+    pairs = _visible_pairs(s, t, causal, window)
     # 2 D + 2 Dv FLOPs per visible pair
     fl = b * h * pairs * 2 * (d + dv)
     nbytes = sum(x.numel() * x.element_size() for x in (q, k, v)) \
@@ -5155,19 +5434,10 @@ def time_b6(q, k, v, kw, ops_per_s: float, launches: int, *, iters: int = 3,
                flops=fl, bytes=nbytes, visible_pairs_per_head=pairs,
                causal=causal, window=window, shape=[b, s, t, h, hk, d, dv])
     out["tflops"] = fl / out["device_ms"] / 1e9
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     try:
-        if window:
-            kt, vt = (x.repeat_interleave(h // hk, dim=1) for x in (kt, vt))
-            j = torch.arange(t, device=q.device)
-            ii = torch.arange(s, device=q.device)[:, None]
-            mask = (j[None, :] > ii - window) & ((j[None, :] <= ii) if causal
-                                                 else True)
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, attn_mask=mask)
-        else:
-            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=causal, enable_gqa=hk != h)
+        args, sdpa_kw, _ = _sdpa_operands(q, k, v, causal, window)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            *args, **sdpa_kw)
         out["library_ms"] = cuda_ms(lib, iters=iters, warmup=1)
     except (RuntimeError, torch.OutOfMemoryError) as e:
         out["library_ms"] = None
@@ -5194,6 +5464,7 @@ def main() -> int:
     global SIDE
     t_start = time.perf_counter()
     SIDE = _CpuSide()
+    SIDE.submit("dryrun", _dryrun_gate, _dryrun_records, DRYRUN_SHAPES)
     try:
         return run(t_start)
     finally:
@@ -5228,6 +5499,7 @@ def run(t_start: float) -> int:
     phase_build_attention(build)
     hgmma = hgmma_count()
     simt_res = simt_resources()
+    bwd_res = bwd_resources()
     flash_err = timed("flash_parity", phase_flash_parity)
     shard = timed("shard", phase_shard, card)
     packet = timed("packet", phase_packet, card)
@@ -5359,9 +5631,14 @@ def run(t_start: float) -> int:
         "source": "src/repro_torch/kernels/csrc/attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:32",
         # the main path is the bf16 instance: the 32k prefills' launches,
-        # one per attention layer (Qwen3-0.6B's, then the zoo's), and its
-        # times at Qwen3-0.6B's layer 0
-        "launches": serve["launches"] + zoo["launches"], "on_path": True,
+        # one per attention layer (Qwen3-0.6B's, then the zoo's), the train
+        # path's (twice per layer, microbatch and local step: the forward
+        # and its recompute; with the row statistic), and its times at
+        # Qwen3-0.6B's layer 0
+        "launches": (serve["launches"] + zoo["launches"]
+                     + train["launches"]["flash_attention"]),
+        "train_launches": train["launches"]["flash_attention"],
+        "writes_row_statistic_under_autograd": True, "on_path": True,
         "max_abs_err": serve["layer_err_vs_plain"], "bitwise": False,
         "tolerance": {"abs": LAYER_TOL[0], "rel": LAYER_TOL[1]},
         "max_abs_err_small_shapes": flash_err,
@@ -5392,6 +5669,30 @@ def run(t_start: float) -> int:
             f"{arch} {dt}": [c[dt]["b6_launches"], c[dt]["b6_shapes"]]
             for arch, c in zoo["check"].items()
             for dt in ("float32", "bfloat16") if c[dt]["b6_launches"]}})
+    # B6's backward: the train path's launches (each one wrapper call:
+    # flash_bwd_dot, flash_bwd_dkdv, flash_bwd_dq), its headline numbers
+    # at Qwen3-0.6B's bf16 train layer, each instance held to autograd
+    # through the plain version
+    bwd = train["b6_backward"]
+    head = bwd[0]
+    kernels.append({
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:74",
+        "replaces_note": "no TPU kernel: the reference differentiates its "
+                         "plain blockwise scan (_blockwise_attention)",
+        "kernels": ["flash_bwd_dot", "flash_bwd_dkdv", "flash_bwd_dq"],
+        "launches": train["launches"]["flash_attention_backward"],
+        "on_path": True, "max_abs_err": head["max_abs_err"],
+        "max_rel_err": max(head["max_rel_err"]),
+        "max_rel_err_is": "of each gradient's largest |g|",
+        "bitwise": False, "tolerance_rel": B6_BWD_TOL,
+        **{k: head[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "tflops", "shape",
+                                "dtype")},
+        "instances": bwd, "resources": bwd_res,
+        "check_step_launches_per_rank": train["checks"]["2304"][
+            "b6_launches_per_rank"][1]})
     for z in zoo["prefill"].values():
         z.pop("b6", None)
     serve = {k: v for k, v in serve.items() if k != "b6"}

@@ -54,7 +54,13 @@ SOURCES = {
                             ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]),
     ),
     "attention": (
-        ("repro_flash_attention", [ctypes.c_void_p] * 4
+        ("repro_flash_attention", [ctypes.c_void_p] * 5
+         + [ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_void_p]),
+    ),
+    "attention_bwd": (
+        ("repro_flash_attention_bwd", [ctypes.c_void_p] * 10
          + [ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
             ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_void_p]),

@@ -101,6 +101,13 @@
 //   * The tile skipping and the visit of every tile when a row sees no key
 //     are those of the bf16 kernel.
 //
+// Row statistic for the backward (csrc/attention_bwd.cu): given a non-null
+// `lse`, float32 (B, H, S) contiguous, both kernels also write each row's
+// natural-log sum, lse = m + logf(l), with m the row's largest scaled score
+// and l its sum of p (so p / l = exp(s * scale - lse)).  The kernels keep
+// their base-2 exponentials inside; lse is converted once per row.  With a
+// null pointer nothing else changes: the output is bitwise what it was.
+//
 // Plain C entry point, loaded with ctypes; it returns cudaGetLastError()
 // right after the launch, or a cudaError_t for operands it cannot take.
 
@@ -186,7 +193,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
-                __nv_bfloat16* __restrict__ o, const TcParams p) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                const TcParams p) {
   using bf16 = __nv_bfloat16;
   using PTile = uint32_t[BN / 16][4];
   constexpr int kDC = DP / 64, kVC = DVP / 64, kNC = BN / 64, kKS = BN / 16;
@@ -482,6 +490,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int64_t qpos = qrow + 8 * i;
     if (qpos >= p.S) continue;
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(b * p.H + h) * p.S + qpos] = m[i] + logf(l[i]);
     const float denom = fmaxf(l[i], 1e-30f);
     bf16* orow = o + ((b * p.S + qpos) * p.H + h) * (int64_t)p.Dv;
 #pragma unroll
@@ -555,8 +565,8 @@ bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
 
 template <int DP, int DVP, int BN>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 const int64_t* dims, const int64_t* strides, int causal,
-                 int window, float scale, cudaStream_t stream) {
+                 float* lse, const int64_t* dims, const int64_t* strides,
+                 int causal, int window, float scale, cudaStream_t stream) {
   const int64_t B = dims[0], S = dims[1], T = dims[2], H = dims[3],
                 Hk = dims[4];
   const int64_t q_shape[4] = {B, S, H, dims[5]};
@@ -585,7 +595,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   p.scale = scale;
   const dim3 grid((unsigned)H, (unsigned)((S + kBM - 1) / kBM), (unsigned)B);
   kernel<<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, (__nv_bfloat16*)o,
-                                             p);
+                                             lse, p);
   return (int)cudaGetLastError();
 }
 
@@ -662,7 +672,8 @@ flash_fwd_simt(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v,
                const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ o, Params p) {
+               const float* __restrict__ v, float* __restrict__ o,
+               float* __restrict__ lse, Params p) {
   constexpr int R = BQ / 16;          // rows per thread
   // no static shared memory, so the dynamic block starts 1024-byte aligned
   extern __shared__ __align__(1024) float smem_f[];
@@ -894,6 +905,8 @@ flash_fwd_simt(const __grid_constant__ CUtensorMap tm_q,
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
     const int64_t qpos = q0 + rg + 16 * i;
     if (qpos >= p.S) continue;
+    if (lse != nullptr && cg == 0)
+      lse[(b * H + h) * p.S + qpos] = m[i] + logf(l[i]);
     const float denom = fmaxf(l[i], 1e-30f);
     float* orow = o + ((b * p.S + qpos) * H + h) * (int64_t)p.Dv;
 #pragma unroll
@@ -920,7 +933,7 @@ size_t simt_smem_bytes(int bq, int ns, int nbk, int slot) {
 
 template <int BQ, int DVC, int NS>
 int launch_simt(const void* q, const void* k, const void* v, void* o,
-                Params& p, const int64_t* strides, int64_t batch,
+                float* lse, Params& p, const int64_t* strides, int64_t batch,
                 cudaStream_t stream) {
   const int64_t q_shape[4] = {batch, p.S, p.H, p.D};
   const int64_t k_shape[4] = {batch, p.T, p.Hk, p.D};
@@ -943,15 +956,15 @@ int launch_simt(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned)blocks, (unsigned)batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, (const float*)q, (const float*)k, (const float*)v,
-      (float*)o, p);
+      (float*)o, lse, p);
   return (int)cudaGetLastError();
 }
 
 // 128 query rows and a 3-slot ring where D <= 128 and Dv <= 128 (the
 // models' head sizes), else 64 rows and 2 slots (D or Dv up to 256).
 int dispatch_simt(const void* q, const void* k, const void* v, void* o,
-                  const int64_t* dims, const int64_t* strides, int causal,
-                  int window, float scale, cudaStream_t stream) {
+                  float* lse, const int64_t* dims, const int64_t* strides,
+                  int causal, int window, float scale, cudaStream_t stream) {
   Params p;
   p.S = dims[1];
   p.T = dims[2];
@@ -973,43 +986,50 @@ int dispatch_simt(const void* q, const void* k, const void* v, void* o,
   const int dvc = (p.Dv + 63) / 64;
   const int64_t B = dims[0];
   if (dvc <= 2 && simt_smem_bytes(128, 3, p.nbk, p.slot) <= kSmemMax)
-    return dvc == 1 ? launch_simt<128, 1, 3>(q, k, v, o, p, strides, B, stream)
-                    : launch_simt<128, 2, 3>(q, k, v, o, p, strides, B, stream);
+    return dvc == 1
+               ? launch_simt<128, 1, 3>(q, k, v, o, lse, p, strides, B, stream)
+               : launch_simt<128, 2, 3>(q, k, v, o, lse, p, strides, B, stream);
   switch (dvc) {
-    case 1: return launch_simt<64, 1, 2>(q, k, v, o, p, strides, B, stream);
-    case 2: return launch_simt<64, 2, 2>(q, k, v, o, p, strides, B, stream);
-    case 3: return launch_simt<64, 3, 2>(q, k, v, o, p, strides, B, stream);
-    case 4: return launch_simt<64, 4, 2>(q, k, v, o, p, strides, B, stream);
+    case 1:
+      return launch_simt<64, 1, 2>(q, k, v, o, lse, p, strides, B, stream);
+    case 2:
+      return launch_simt<64, 2, 2>(q, k, v, o, lse, p, strides, B, stream);
+    case 3:
+      return launch_simt<64, 3, 2>(q, k, v, o, lse, p, strides, B, stream);
+    case 4:
+      return launch_simt<64, 4, 2>(q, k, v, o, lse, p, strides, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The bf16 instance for (D, Dv): the smallest padded pair that holds both.
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
-                   const int64_t* dims, const int64_t* strides, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   float* lse, const int64_t* dims, const int64_t* strides,
+                   int causal, int window, float scale, cudaStream_t stream) {
   const int64_t d = dims[5], dv = dims[6];
   if ((dims[1] + kBM - 1) / kBM > 65535) return (int)cudaErrorInvalidValue;
   if (d <= 64 && dv <= 64)
-    return launch_wgmma<64, 64, 128>(q, k, v, o, dims, strides, causal,
+    return launch_wgmma<64, 64, 128>(q, k, v, o, lse, dims, strides, causal,
                                      window, scale, stream);
   if (d <= 128 && dv <= 128)
-    return launch_wgmma<128, 128, 128>(q, k, v, o, dims, strides, causal,
+    return launch_wgmma<128, 128, 128>(q, k, v, o, lse, dims, strides, causal,
                                        window, scale, stream);
   if (d <= 192 && dv <= 128)
-    return launch_wgmma<192, 128, 128>(q, k, v, o, dims, strides, causal,
+    return launch_wgmma<192, 128, 128>(q, k, v, o, lse, dims, strides, causal,
                                        window, scale, stream);
-  return launch_wgmma<256, 256, 64>(q, k, v, o, dims, strides, causal, window,
-                                    scale, stream);
+  return launch_wgmma<256, 256, 64>(q, k, v, o, lse, dims, strides, causal,
+                                    window, scale, stream);
 }
 
 }  // namespace
 
 // dims: B, S, T, H, Hk, D, Dv.  strides: q's four, then k's, then v's.
+// lse: null, or float32 (B, H, S) for the row statistic.
 // bf16 operands take the tensor-core kernel (their strides 16-byte aligned,
 // the last 1), float32 the SIMT kernel.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int bf16,
+                                     const void* v, void* o, float* lse,
+                                     int bf16,
                                      const int64_t* dims,
                                      const int64_t* strides, int causal,
                                      int window, float scale, void* stream) {
@@ -1019,8 +1039,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
       dims[5] > kMaxDim || dims[6] < 1 || dims[6] > kMaxDim || window < 0 ||
       batch > 65535 || H > 65535 || S >= INT32_MAX || T >= INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  return bf16 ? dispatch_wgmma(q, k, v, o, dims, strides, causal, window,
+  return bf16 ? dispatch_wgmma(q, k, v, o, lse, dims, strides, causal, window,
                                scale, (cudaStream_t)stream)
-              : dispatch_simt(q, k, v, o, dims, strides, causal, window,
+              : dispatch_simt(q, k, v, o, lse, dims, strides, causal, window,
                               scale, (cudaStream_t)stream);
 }

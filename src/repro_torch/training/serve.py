@@ -4,9 +4,9 @@ Mirrors the reference's ``training/serve.py`` on one device.  A
 ``prefill`` shape's step runs ``forward(..., last_only=True)`` and returns
 the last position's logits; a ``decode`` shape's step is one token against
 a KV cache of :func:`cache_len_for` (a ring buffer for long or windowed
-decode).  The reference's mesh, ``param_specs`` and ``cache_specs`` come
-with ``models/shardings.py`` (ROADMAP queue A 1, after training on the
-zoo).  Both steps run without autograd.
+decode).  The reference's ``param_specs`` and ``cache_specs`` are
+``models/shardings.py``'s; ``launch/dryrun.py`` costs both steps on
+``meta`` tensors.  Both steps run without autograd.
 """
 
 from __future__ import annotations

@@ -31,8 +31,9 @@ def test_start_then_finish_waits_only_for_the_names_given(calls):
     assert set(build._pending) == set(build.SOURCES)
     assert build.finish(("quant", "votes")) == {"quant": 1.5, "votes": 1.5}
     assert build._loaded == {"quant": "lib-quant", "votes": "lib-votes"}
-    assert list(build._pending) == ["attention"]
-    assert build.finish(("attention",)) == {"attention": 1.5}
+    assert list(build._pending) == ["attention", "attention_bwd"]
+    assert build.finish(("attention", "attention_bwd")) == {
+        "attention": 1.5, "attention_bwd": 1.5}
     assert not build._pending
     assert [c[0] for c in calls].count("start") == len(build.SOURCES)
     assert ("finish", "attention", "proc-attention") in calls
@@ -43,7 +44,7 @@ def test_each_source_is_compiled_once(calls):
     assert build.library("attention") == "lib-attention"
     assert build.library("quant") == "lib-quant"
     assert build.build_all() == {"quant": 0.0, "votes": 1.5,
-                                 "attention": 0.0}
+                                 "attention": 0.0, "attention_bwd": 1.5}
     build.start()
     assert build.finish() == {n: 0.0 for n in build.SOURCES}
     assert sorted(c[1] for c in calls if c[0] == "start") \

@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain version, and
 a round, the packet round (plain, chaos, Byzantine-robust and async) and
 the FL loop against the same on the CPU, a probe leaving the FL run
-bitwise, B6 refusing autograd, and a train step against the CPU's.
+bitwise, B6's backward against autograd through its plain version (and
+under both remat policies), and a train step against the CPU's.
 Every test needs an NVIDIA GPU and skips without one.
 
 This file imports neither JAX nor the reference package, so it also runs
@@ -711,10 +712,12 @@ def test_zoo_forward_and_decode_card_match_cpu(cuda_device, monkeypatch, arch,
 
 @requires_cuda
 def test_flash_attention_refuses_autograd_on_card(cuda_device, monkeypatch):
-    """B6 has no backward (nor has the reference's kernel): under autograd
-    it raises instead of returning an output whose gradient would leave
-    out q, k and v, and it still runs under ``torch.no_grad()``.  A model
-    forward above DENSE_MAX_SEQ with autograd on raises the same way."""
+    """B6 under autograd on the card (it refused it until it had a
+    backward): the forward launches once, the backward once, each counted,
+    and the gradients of q, k and v are autograd's through the plain
+    version; a gradient only of v leaves dq's kernel out.  A model's loss
+    above DENSE_MAX_SEQ is differentiated through B6 and matches the
+    CPU's blockwise scan."""
     from repro_torch.configs import get_smoke
     from repro_torch.models import attention as A
     from repro_torch.models import model as M
@@ -722,25 +725,151 @@ def test_flash_attention_refuses_autograd_on_card(cuda_device, monkeypatch):
     q = torch.randn(1, 256, 4, 64, device=cuda_device, generator=gen)
     k = torch.randn(1, 256, 2, 64, device=cuda_device, generator=gen)
     fa = flash_attention.flash_attention
-    before = fa.launches
     for grad_of in ("q", "k", "v"):
-        args = {"q": q, "k": k, "v": k}
+        args = {"q": q, "k": k, "v": k.clone()}
         args[grad_of] = args[grad_of].clone().requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="no backward"):
-            fa(args["q"], args["k"], args["v"])
-    assert fa.launches == before
-    with torch.no_grad():
-        out = fa(q.requires_grad_(True), k, k)
-    torch.cuda.synchronize()
-    assert fa.launches == before + 1 and not out.requires_grad
+        before, before_b = fa.launches, fa.backward_launches
+        out = fa(args["q"], args["k"], args["v"])
+        (g,) = torch.autograd.grad(out.square().sum(), args[grad_of])
+        torch.cuda.synchronize()
+        assert (fa.launches, fa.backward_launches) == (before + 1,
+                                                       before_b + 1)
+        x = args[grad_of].detach().requires_grad_(True)
+        ref = {**args, grad_of: x}
+        (want,) = torch.autograd.grad(flash_attention.flash_attention_plain(
+            ref["q"], ref["k"], ref["v"]).square().sum(), x)
+        assert float((g - want).abs().max()) <= 1e-4 * float(want.abs().max())
     cfg = get_smoke("qwen3_0p6b")
     monkeypatch.setattr(A, "DENSE_MAX_SEQ", 128)
     params = M.init_params(cfg, prng.PRNGKey(0, device=cuda_device),
                            device=cuda_device)
+    cpu = copy.deepcopy(params).cpu()
     tokens = torch.randint(0, cfg.vocab, (1, 256), device=cuda_device,
                            generator=gen)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        M.loss_fn(params, cfg, {"tokens": tokens, "targets": tokens})
+    before, before_b = fa.launches, fa.backward_launches
+    loss = M.loss_fn(params, cfg, {"tokens": tokens, "targets": tokens})
+    grads = torch.autograd.grad(loss, list(params.parameters()))
+    torch.cuda.synchronize()
+    assert fa.launches - before == 2 * cfg.n_layers        # remat recomputes
+    assert fa.backward_launches - before_b == cfg.n_layers
+    t = tokens.cpu()
+    loss_c = M.loss_fn(cpu, cfg, {"tokens": t, "targets": t})
+    want = torch.autograd.grad(loss_c, list(cpu.parameters()))
+    assert abs(float(loss) - float(loss_c)) <= 1e-5 * abs(float(loss_c))
+    for g, w in zip(grads, want):
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max())
+
+
+#: the backward's instances: chip_smoke.py's (Qwen3-0.6B's train layer,
+#: granite's head size, MLA's 192 / 128, hymba's window, whisper's cross
+#: shape) and edge cases: odd S and T, D = 256, rows that see no key
+BWD_CASES = [
+    (1, 4096, 4096, 16, 8, 128, 128, True, 0),
+    (1, 2048, 2048, 16, 8, 64, 64, True, 0),
+    (1, 1024, 1024, 16, 16, 192, 128, True, 0),
+    (1, 4096, 4096, 25, 5, 64, 64, True, 2048),
+    (2, 448, 1500, 6, 6, 64, 64, False, 0),
+    (1, 333, 517, 4, 2, 96, 96, True, 0),
+    (1, 517, 333, 4, 2, 40, 72, False, 0),
+    (1, 300, 300, 4, 2, 256, 256, True, 37),
+    (1, 700, 300, 4, 2, 64, 64, False, 64),      # rows 363.. see no key
+]
+
+
+def _bwd_inputs(dtype, b, s, t, h, hk, d, dv, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(b, s, h, d, device=device, generator=gen).to(dtype)
+    k = torch.randn(b, t, hk, d, device=device, generator=gen).to(dtype)
+    v = torch.randn(b, t, hk, dv, device=device, generator=gen).to(dtype)
+    g = torch.randn(b, s, h, dv, device=device, generator=gen).to(dtype)
+    return q, k, v, g
+
+
+def _grads_close(got, want, dtype):
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,h,hk,d,dv,causal,window", BWD_CASES)
+def test_flash_attention_bwd_matches_plain_on_card(cuda_device, dtype, b, s,
+                                                   t, h, hk, d, dv, causal,
+                                                   window):
+    """The backward kernels against autograd through the plain forward
+    (1e-4 / 2e-2 of each gradient's largest |g|) and against the plain
+    backward from the same out and lse, bitwise across two runs, with a
+    non-contiguous dout read as it lies."""
+    q, k, v, g = _bwd_inputs(dtype, b, s, t, h, hk, d, dv, cuda_device,
+                             s + t + d)
+    kw = dict(causal=causal, window=window)
+    fa = flash_attention
+    out, lse = fa._launch_forward(q, k, v, causal, window, True)
+    # dout as the transpose of a (B, S, Dv, H) tensor: no stride is 1 where
+    # the kernels read along Dv
+    g_nc = g.transpose(2, 3).contiguous().transpose(2, 3)
+    assert not g_nc.is_contiguous() and torch.equal(g_nc, g)
+    before = fa.flash_attention.backward_launches
+    got = fa.flash_attention_bwd(q, k, v, out, lse, g_nc, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.backward_launches == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    xs = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(fa.flash_attention_plain(*xs, **kw), xs, g)
+    _grads_close(got, want, dtype)
+    plain = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, **kw)
+    _grads_close(got, plain, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_leaves_output_bitwise_on_card(cuda_device, dtype):
+    """The forward with the row statistic written gives the same output
+    bits as without it, and its lse is the plain version's."""
+    for (b, s, t, h, hk, d, dv, causal, window) in BWD_CASES:
+        q, k, v, _ = _bwd_inputs(dtype, b, s, t, h, hk, d, dv, cuda_device, 5)
+        bare, none = flash_attention._launch_forward(q, k, v, causal, window,
+                                                     False)
+        out, lse = flash_attention._launch_forward(q, k, v, causal, window,
+                                                   True)
+        assert none is None and torch.equal(bare, out)
+        _, want = flash_attention.flash_attention_plain(
+            q, k, v, causal=causal, window=window, return_lse=True)
+        live = want > -1e29
+        torch.testing.assert_close(lse[live], want[live], atol=1e-4,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_policies_through_b6_on_card(cuda_device, monkeypatch, policy):
+    """A 2-layer step above DENSE_MAX_SEQ under each remat policy: B6's
+    forward launches again in each layer's recompute (never a stale
+    buffer), and the gradients equal those of the same step without
+    remat."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    monkeypatch.setattr(A, "DENSE_MAX_SEQ", 128)
+    cfg = get_smoke("qwen3_0p6b").with_(remat_policy=policy)
+    params = M.init_params(cfg, prng.PRNGKey(0, device=cuda_device),
+                           device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (2, 384), device=cuda_device,
+                           generator=gen)
+    batch = {"tokens": tokens, "targets": tokens.roll(1, dims=1)}
+    fa = flash_attention.flash_attention
+    grads = {}
+    for remat in (True, False):
+        before, before_b = fa.launches, fa.backward_launches
+        loss = M.loss_fn(params, cfg.with_(remat=remat), batch)
+        grads[remat] = torch.autograd.grad(loss, list(params.parameters()))
+        torch.cuda.synchronize()
+        assert fa.launches - before == cfg.n_layers * (2 if remat else 1)
+        assert fa.backward_launches - before_b == cfg.n_layers
+    for a, w in zip(grads[True], grads[False]):
+        assert torch.equal(a, w)
 
 
 @requires_cuda

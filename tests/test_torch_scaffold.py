@@ -74,8 +74,10 @@ def test_source_imports_neither_jax_nor_reference(path):
 
 
 #: port modules whose reference counterpart has another name: the
-#: profiler of eager torch entry points stands where the jit profiler stood
-RENAMED = {Path("obs/torchprof.py"): Path("obs/jaxprof.py")}
+#: profiler of eager torch entry points stands where the jit profiler
+#: stood, and the op-level cost of an eager call where the HLO cost stood
+RENAMED = {Path("obs/torchprof.py"): Path("obs/jaxprof.py"),
+           Path("launch/op_cost.py"): Path("launch/hlo_cost.py")}
 
 
 def test_module_layout_mirrors_reference():
