@@ -198,8 +198,9 @@ Phases, each of which raises (and exits non-zero) on failure:
    width and depth (random weights from ``PRNGKey(0)``; 4 x 4,096 tokens
    per client, ``TRAIN_4K``'s length, above ``DENSE_MAX_SEQ``, so every
    attention layer runs B6 forward and, through its autograd.Function,
-   B6's backward (``flash_bwd_dot``, ``flash_bwd_dkdv``, ``flash_bwd_dq``
-   of ``attention_bwd.cu``); E = 4, ``microbatch`` 4, bf16 compute) through
+   B6's backward (``flash_bwd_dot``, then in bf16 ``flash_bwd_dkdv_wgmma``
+   and ``flash_bwd_dq_wgmma`` of ``attention_bwd.cu``); E = 4,
+   ``microbatch`` 4, bf16 compute) through
    ``training.dist_step.make_train_step`` with ``granularity="tensor"``
    and the kernels on: 3 steps of the default FediACConfig (B1 once per
    leaf), then one each of the allreduce path's configs A (B3 + B5) and B
@@ -540,20 +541,20 @@ def phase_build_attention(b: dict) -> None:
         f"{b['wall_s']:.1f} s from the first nvcc to the last library)")
 
 
-def hgmma_count() -> int:
-    """The number of HGMMA (wgmma) instructions in the built attention
-    library's SASS: more than 0 shows that B6's bf16 instance runs on the
-    tensor cores."""
+def hgmma_count(name: str = "attention") -> int:
+    """The number of HGMMA (wgmma) instructions in the SASS of a built
+    attention library (B6's forward, or ``attention_bwd``, its backward):
+    more than 0 shows that its bf16 instances run on the tensor cores."""
     import os
     from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(build._lib_path("attention"))],
+    sass = subprocess.run([tool, "-sass", str(build._lib_path(name))],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     n = sum("HGMMA" in line for line in sass.splitlines())
-    log(f"[build] HGMMA instructions in libattention's SASS: {n}")
-    check(n > 0, "the attention library has no HGMMA instruction")
+    log(f"[build] HGMMA instructions in lib{name}'s SASS: {n}")
+    check(n > 0, f"the {name} library has no HGMMA instruction")
     return n
 
 
@@ -588,27 +589,25 @@ def simt_resources() -> dict:
     return out
 
 
-def bwd_resources() -> dict:
+def bwd_res_usage(lib) -> dict:
     """Registers and spilled (local) bytes a thread of each instance of
-    B6's backward kernels uses (``cuobjdump -res-usage`` of the built
-    library); none may spill."""
+    B6's backward kernels uses in the library at ``lib`` (``cuobjdump
+    -res-usage``), by name, dtype and head sizes."""
     import os
     import re
-    from repro_torch.kernels import build
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    text = subprocess.run([tool, "-res-usage",
-                           str(build._lib_path("attention_bwd"))],
+    text = subprocess.run([tool, "-res-usage", str(lib)],
                           capture_output=True, text=True, timeout=300,
                           check=True).stdout
     out, name = {}, None
     for line in text.splitlines():
-        fn = re.search(r"Function\s+\S*(flash_bwd_\w+?)I(\w+?)Li(\d+)ELi(\d+)E"
-                       r"\S*:", line)
+        fn = re.search(r"Function\s+\S*?(flash_bwd_(?:dkdv|dq)(?:_wgmma)?)I"
+                       r"(f|\d+__nv_bfloat16)?Li(\d+)ELi(\d+)E\S*:", line)
         if fn:
-            name = "{}<{}, {}, {}>".format(fn.group(1), "bf16" if "bfloat"
-                                           in fn.group(2) else "f32",
-                                           fn.group(3), fn.group(4))
+            name = "{}<{}, {}, {}>".format(
+                fn.group(1), "f32" if fn.group(2) == "f" else "bf16",
+                fn.group(3), fn.group(4))
             continue
         use = re.search(r"REG:(\d+)\s+STACK:\d+\s+SHARED:\d+\s+LOCAL:(\d+)",
                         line)
@@ -616,8 +615,22 @@ def bwd_resources() -> dict:
             out[name] = dict(zip(("registers", "local"),
                                  map(int, use.groups())))
             name = None
+    return out
+
+
+def bwd_resources() -> dict:
+    """:func:`bwd_res_usage` of the built ``attention_bwd`` library:
+    ``flash_bwd_dkdv`` and ``flash_bwd_dq`` (FFMA: float32 at four head
+    sizes, bf16 at 256 / 256) and ``flash_bwd_dkdv_wgmma`` and
+    ``flash_bwd_dq_wgmma`` (bf16 at 64 / 64, 128 / 128, 192 / 128); none
+    may spill."""
+    from repro_torch.kernels import build
+    out = bwd_res_usage(build._lib_path("attention_bwd"))
     log(f"[build] B6 backward resources per thread: {out}")
-    check(len(out) >= 16 and all(v["local"] == 0 for v in out.values()),
+    wgmma = sum(name.startswith(("flash_bwd_dkdv_wgmma", "flash_bwd_dq_wgmma"))
+                for name in out)
+    check(len(out) == 16 and wgmma == 6
+          and all(v["local"] == 0 for v in out.values()),
           f"B6 backward instances missing or spilling: {out}")
     return out
 
@@ -4960,6 +4973,8 @@ def train_rank(rank: int, world: int, tmp: str) -> dict:
     report["profile"] = {"busy_ms": sum(r[1] for r in rows),
                          "launches": len(spans),
                          "top": rows[:TRAIN_PROFILE_TOP],
+                         "b6_backward": [r for r in rows
+                                         if "flash_bwd_" in r[0]],
                          "busy_ns": _merge_spans(spans)}
     report["profile_s"] = time.perf_counter() - t0
     report["peak_gib"] = max(peak, torch.cuda.max_memory_allocated()) / 2**30
@@ -5083,8 +5098,10 @@ def phase_b6_backward() -> dict:
     one's largest |g|, two runs bitwise equal, then timed: call ms (CUDA
     events), device ms (a replayed CUDA graph), the plain backward's ms,
     its bound (6 D + 4 Dv FLOPs per visible pair at the peak of the
-    operands' type, or each input read and each gradient written once) and
-    SDPA's backward through autograd (timed only)."""
+    operands' type, or each input read and each gradient written once), the
+    bound of the FLOPs its route issues (``wgmma``: 12 D + 8 Dv at the bf16
+    peak, p and ds split in two; ``ffma``: 8 D + 6 Dv at the float32 rate)
+    and SDPA's backward through autograd (timed only)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
@@ -5129,9 +5146,13 @@ def phase_b6_backward() -> dict:
             t_bytes = nbytes / HBM_BW * 1e3
             t_ops = flops / (PEAK_FLOPS_BF16 if dt == "bfloat16"
                              else PEAK_FLOPS_FP32) * 1e3
+            route = fa.backward_route(dtype, d, dv)
+            issued = b * h * pairs * ((12 * d + 8 * dv) if route == "wgmma"
+                                      else (8 * d + 6 * dv))
             run = lambda: fa.flash_attention_bwd(  # noqa: E731
                 q, k, v, o, lse, g, **kw)
             rec = dict(instance=name, dtype=dt, shape=[b, s, t, h, hk, d, dv],
+                       route=route,
                        causal=causal, window=window, max_rel_err=errs,
                        max_abs_err=max(abs_errs),
                        ms=cuda_ms(run, iters=3, warmup=1),
@@ -5140,7 +5161,11 @@ def phase_b6_backward() -> dict:
                            q, k, v, o, lse, g, **kw), iters=1, warmup=1),
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
-                       flops=flops, bytes=nbytes, visible_pairs_per_head=pairs)
+                       issued_bound_ms=issued / (
+                           PEAK_FLOPS_BF16 if route == "wgmma"
+                           else PEAK_FLOPS_FP32) * 1e3,
+                       flops=flops, issued_flops=issued, bytes=nbytes,
+                       visible_pairs_per_head=pairs)
             rec["tflops"] = flops / rec["device_ms"] / 1e9
             lib, refused = _sdpa_backward(q, k, v, g, causal, window)
             rec["library_ms"] = None if lib is None else cuda_ms(
@@ -5150,10 +5175,12 @@ def phase_b6_backward() -> dict:
             del lib
             out.append(rec)
             _free_card()
-            log(f"[b6 backward] {where}: within {max(errs):.3g} of autograd "
+            log(f"[b6 backward] {where} ({rec['route']}): within "
+                f"{max(errs):.3g} of autograd "
                 f"through plain, bitwise twice; {rec['device_ms']:.3f} ms dev "
                 f"({rec['ms']:.3f} call), bound {rec['bound_ms']:.4f} "
-                f"({rec['bound_by']}), plain {rec['plain_ms']:.2f}, SDPA "
+                f"({rec['bound_by']}; {rec['issued_bound_ms']:.4f} as "
+                f"issued), plain {rec['plain_ms']:.2f}, SDPA "
                 f"{rec['library_ms']}")
     return out
 
@@ -5353,6 +5380,9 @@ def phase_train(card: str) -> dict:
                             for t in range(len(TRAIN_SCHEDULE))],
            **_train_idle(reports),
            "profile_top_by_rank": [rep["profile"]["top"] for rep in reports],
+           # B6's backward kernels in the profiled step (ms, launches)
+           "profile_b6_backward_by_rank": [rep["profile"]["b6_backward"]
+                                           for rep in reports],
            "profile_s": max(rep["profile_s"] for rep in reports),
            "check_s": max(rep["check_s"] for rep in reports),
            "b6_launches_per_rank_step": {"forward": b6_fwd,
@@ -5498,6 +5528,7 @@ def run(t_start: float) -> int:
     # B6's build, compiled beside the phases so far, and its parity
     phase_build_attention(build)
     hgmma = hgmma_count()
+    hgmma_bwd = hgmma_count("attention_bwd")
     simt_res = simt_resources()
     bwd_res = bwd_resources()
     flash_err = timed("flash_parity", phase_flash_parity)
@@ -5670,7 +5701,7 @@ def run(t_start: float) -> int:
             for arch, c in zoo["check"].items()
             for dt in ("float32", "bfloat16") if c[dt]["b6_launches"]}})
     # B6's backward: the train path's launches (each one wrapper call:
-    # flash_bwd_dot, flash_bwd_dkdv, flash_bwd_dq), its headline numbers
+    # flash_bwd_dot, then dk/dv's kernel and dq's), its headline numbers
     # at Qwen3-0.6B's bf16 train layer, each instance held to autograd
     # through the plain version
     bwd = train["b6_backward"]
@@ -5681,7 +5712,11 @@ def run(t_start: float) -> int:
         "replaces": "src/repro/models/attention.py:74",
         "replaces_note": "no TPU kernel: the reference differentiates its "
                          "plain blockwise scan (_blockwise_attention)",
-        "kernels": ["flash_bwd_dot", "flash_bwd_dkdv", "flash_bwd_dq"],
+        # bf16 up to (192, 128) on the tensor cores, float32 and (256, 256)
+        # on FFMA (flash_attention.backward_route)
+        "kernels": ["flash_bwd_dot", "flash_bwd_dkdv_wgmma",
+                    "flash_bwd_dq_wgmma", "flash_bwd_dkdv", "flash_bwd_dq"],
+        "hgmma_in_sass": hgmma_bwd,
         "launches": train["launches"]["flash_attention_backward"],
         "on_path": True, "max_abs_err": head["max_abs_err"],
         "max_rel_err": max(head["max_rel_err"]),

@@ -125,33 +125,10 @@ constexpr int kMaxDim = 256;
 constexpr float kNegInf = -1e30f;     // the reference's masking sentinel
 constexpr float kLog2e = 1.4426950408889634f;
 
-// 2^x on the special-function unit (relative error under 2^-22; results
-// below 2^-126 flush to 0, far under a row sum of at least 1).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Allows `bytes` of dynamic shared memory for `kernel`, once per device
-// (`configured` is the caller's, one array per kernel), so that no attribute
-// is set while a CUDA graph is being captured.
-constexpr int kMaxDevices = 64;
-
-template <typename K>
-int allow_smem(K kernel, size_t bytes, bool* configured) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured[dev] = true;
-  }
-  return 0;
-}
+using hopper::allow_smem;
+using hopper::encode_map;
+using hopper::fast_exp2;
+using hopper::kMaxDevices;
 
 // The KV positions [lo, hi) a query tile of rows [q0, q_last] must visit.
 // Keys above the causal diagonal of its last row, or at or below
@@ -510,57 +487,6 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
         }
       }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, looked up once through the runtime.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// A 4-d map over a (B, R, Hx, Dx) tensor of `esize`-byte elements with
-// element strides st (st[3] == 1): boxes of `cols` columns x 1 head x
-// `rows` rows x 1 batch, zeros past every edge.
-bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
-                int cols, CUtensorMapSwizzle swizzle, const void* ptr,
-                const int64_t* shape, const int64_t* st, int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || st[3] != 1 ||
-      reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
-    return false;
-  const cuuint64_t gdim[4] = {(cuuint64_t)shape[3], (cuuint64_t)shape[2],
-                              (cuuint64_t)shape[1], (cuuint64_t)shape[0]};
-  cuuint64_t gstride[3];
-  for (int i = 0; i < 3; ++i) {
-    if (st[2 - i] <= 0 || (st[2 - i] * esize) % 16 != 0) return false;
-    gstride[i] = (cuuint64_t)st[2 - i] * esize;
-  }
-  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  return fn(map, type, 4, const_cast<void*>(ptr),
-            gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DP, int DVP, int BN>

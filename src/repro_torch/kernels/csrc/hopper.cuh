@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, cp.async
 // element copies, TMA tensor loads and warpgroup matrix products (wgmma) on
-// bf16 operands with float32 accumulators.  Header only; every function is
-// device-inline.
+// bf16 operands with float32 accumulators; and, on the host, the tensor
+// maps TMA reads and the shared-memory attribute.  Header only; every
+// function is inline.
 //
 // Shared-memory tiles read by wgmma are written by TMA with the 128-byte
 // swizzle: a tile of R rows by 64 bf16 columns (128 bytes a row), 8-row
@@ -10,9 +11,24 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
+
+// 2^x on the special-function unit (relative error under 2^-22; results
+// below 2^-126 flush to 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// reads of it by the async proxy (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -166,6 +182,40 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// The m64n32k16 form: d is 64 x 32.
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16], uint64_t a,
+                                                   uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The m64n48k16 form: d is 64 x 48.
+__device__ __forceinline__ void wgmma_ss_m64n48k16(float (&d)[24], uint64_t a,
+                                                   uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 0, "
+      "0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 64, f32) += A (64 x 16) . B (16 x 64): A bf16 in registers (the
 // accumulator layout of a 64 x 16 slice, packed in pairs), B bf16 in shared
 // memory, MN-major.
@@ -222,5 +272,81 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16_mn(float (&d)[64],
 #undef HOPPER_R64
 #undef HOPPER_D32
 #undef HOPPER_R32
+
+// -- host ------------------------------------------------------------------
+
+constexpr int kMaxDevices = 64;
+
+// Allows `bytes` of dynamic shared memory for `kernel`, once per device
+// (`configured` is the caller's, one array per kernel), so that no attribute
+// is set while a CUDA graph is being captured.
+template <typename K>
+inline int allow_smem(K kernel, size_t bytes, bool* configured) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!configured[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured[dev] = true;
+  }
+  return 0;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, looked up once through the runtime
+// (so no -lcuda).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-d map over a (B, R, Hx, Dx) tensor of `esize`-byte elements with
+// element strides st (st[3] == 1): boxes of `cols` columns x 1 head x
+// `rows` rows x 1 batch, zeros past every edge.  False where TMA cannot
+// read the tensor (a last stride other than 1, another stride or the base
+// not 16-byte aligned).
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
+                       int cols, CUtensorMapSwizzle swizzle, const void* ptr,
+                       const int64_t* shape, const int64_t* st, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || st[3] != 1 ||
+      reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+    return false;
+  const cuuint64_t gdim[4] = {(cuuint64_t)shape[3], (cuuint64_t)shape[2],
+                              (cuuint64_t)shape[1], (cuuint64_t)shape[0]};
+  cuuint64_t gstride[3];
+  for (int i = 0; i < 3; ++i) {
+    if (st[2 - i] <= 0 || (st[2 - i] * esize) % 16 != 0) return false;
+    gstride[i] = (cuuint64_t)st[2 - i] * esize;
+  }
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  return fn(map, type, 4, const_cast<void*>(ptr),
+            gdim, gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 }  // namespace hopper

@@ -46,13 +46,19 @@ output, the natural-log row statistic ``lse = m + log(l)`` (float32,
 ``(B, H, S)``), and its backward launches the three kernels of
 ``csrc/attention_bwd.cu`` (:func:`flash_attention_bwd`), which recompute
 ``p = exp(scale·q·k - lse)`` tile by tile (no score is stored) and write
-dq, dk and dv in q's dtype.  They replace no TPU kernel.  On the CPU the
-same Function runs the plain versions, :func:`flash_attention_plain` with
-``return_lse=True`` and :func:`flash_attention_bwd_plain`.  The gradient is
-that of :func:`flash_attention_plain` under autograd: masked scores carry
-none, so a row that sees no key (``window > 0`` and row ``>= T - 1 +
-window``), whose output is the mean of v, gives dv ``dout / T`` on every
-key and nothing to q or k.
+dq, dk and dv in q's dtype: bfloat16 at head sizes up to (192, 128) on the
+tensor cores, float32 and D = 256 on FFMA (:func:`backward_route`).  They
+replace no TPU kernel.  On the CPU the same Function runs the plain
+versions, :func:`flash_attention_plain` with ``return_lse=True`` and
+:func:`flash_attention_bwd_plain`.  The gradient is that of
+:func:`flash_attention_plain` under autograd: masked scores carry none.
+A row that sees no key (``window > 0`` and row ``>= T - 1 + window``) has
+no such gradient (the reference's additive mask differentiates its
+sentinel scores, over a KV length padded to its tile), so under autograd
+:func:`flash_attention`, and :func:`flash_attention_bwd` and
+:func:`flash_attention_bwd_plain` always, refuse a call that has one,
+before any launch; the forward without autograd still answers the mean
+of v there.
 """
 
 from __future__ import annotations
@@ -66,7 +72,8 @@ import torch
 from . import build
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_bwd",
-           "flash_attention_bwd_plain", "tma_layout_ok", "MAX_HEAD_DIM"]
+           "flash_attention_bwd_plain", "backward_route", "tma_layout_ok",
+           "MAX_HEAD_DIM"]
 
 NEG_INF = -1e30
 BLOCK = 512            # the plain version's tiles (the TPU kernel's QB = KB)
@@ -106,6 +113,14 @@ def tma_layout_ok(t: torch.Tensor) -> bool:
     size = t.element_size()
     return last == 1 and t.data_ptr() % 16 == 0 \
         and all(st > 0 and st * size % 16 == 0 for st in outer)
+
+
+def _require_tma(what: str, q, k, v) -> None:
+    if not all(tma_layout_ok(x) for x in (q, k, v)):
+        raise ValueError(
+            f"{what} on bfloat16 reads q, k, v with TMA: each needs its last "
+            "stride 1 and its other strides and base address 16-byte "
+            f"aligned; got strides {q.stride()}, {k.stride()}, {v.stride()}")
 
 
 def _visible(qpos, kpos, causal: bool, window: int) -> torch.Tensor:
@@ -162,12 +177,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse.reshape(b, h, s)) if return_lse else out
 
 
-def _dead_rows(qpos, t: int, window: int) -> torch.Tensor:
-    """Rows that see no key: ``window > 0`` and ``qpos >= T - 1 + window``
-    (every score masked, so p = 1 on each of the T keys and out = mean v)."""
-    if window <= 0:
-        return torch.zeros_like(qpos, dtype=torch.bool)
-    return qpos >= t - 1 + window
+def _refuse_rows_without_keys(s: int, t: int, window: int) -> None:
+    """Raise when some query row sees no key (``window > 0`` and a row at
+    or past ``T - 1 + window``): its gradient is not the kernels' to give."""
+    if window > 0 and s > t - 1 + window:
+        raise ValueError(
+            f"flash_attention's gradient: query rows {t - 1 + window}.."
+            f"{s - 1} see no key (window {window}, T {t}); a row without a "
+            "key has no gradient here, so autograd through B6 refuses it")
+
+
+def backward_route(dtype: torch.dtype, d: int, dv: int) -> str:
+    """Which kernels the card's backward runs for ``dtype`` at head sizes
+    ``(d, dv)``: ``"wgmma"`` (bfloat16 up to the (192, 128) instance, on the
+    tensor cores) or ``"ffma"`` (float32, and bfloat16 at the (256, 256)
+    instance)."""
+    return "wgmma" if dtype == torch.bfloat16 and d <= 192 and dv <= 128 \
+        else "ffma"
 
 
 def _check_bwd(q, k, v, out, lse, dout) -> None:
@@ -194,12 +220,13 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
     """The plain-torch backward: ``(dq, dk, dv)`` in q's dtype from the
     forward's ``out`` and ``lse``, in float32 over tiles of ``BLOCK`` rows
     as the kernels walk theirs: ``Δ = rowsum(dout·out)``, then per tile pair
-    ``p = exp(scale·q·k - lse)`` on visible pairs (``1 / T`` on every key of
-    a row that sees none, 0 elsewhere), ``dp = dout·vᵀ``, ``ds = p·(dp - Δ)``
-    on visible pairs, ``dv += pᵀ·dout``, ``dk += scale·dsᵀ·q`` and
-    ``dq += scale·ds·k``, summed over each KV head's query heads."""
+    ``p = exp(scale·q·k - lse)`` on visible pairs (0 elsewhere),
+    ``dp = dout·vᵀ``, ``ds = p·(dp - Δ)`` on visible pairs, ``dv += pᵀ·dout``,
+    ``dk += scale·dsᵀ·q`` and ``dq += scale·ds·k``, summed over each KV
+    head's query heads.  Raises when a row sees no key."""
     _check(q, k, v, window)
     _check_bwd(q, k, v, out, lse, dout)
+    _refuse_rows_without_keys(q.shape[1], k.shape[1], int(window))
     b, s, h, d = q.shape
     t, hk, dv = k.shape[1], k.shape[2], v.shape[3]
     g = h // hk
@@ -216,7 +243,6 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
         qblk, doblk = qf[:, q0:q0 + BLOCK], dof[:, q0:q0 + BLOCK]
         qb = qblk.shape[1]
         qpos = torch.arange(q0, q0 + qb, device=dev)
-        dead = _dead_rows(qpos, t, window)
         row_l = lse_g[..., q0:q0 + qb, None]               # (b, hk, g, qb, 1)
         row_d = delta[:, q0:q0 + qb].reshape(b, qb, hk, g).permute(
             0, 2, 3, 1)[..., None]
@@ -227,7 +253,7 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
             ok = _visible(qpos, kpos, causal, window)
             sc = torch.einsum("bqkgd,bckd->bkgqc", qblk, kblk) * scale
             p = torch.where(ok, torch.exp(torch.where(ok, sc, 0.0) - row_l),
-                            torch.where(dead[:, None], 1.0 / t, 0.0))
+                            0.0)
             dp = torch.einsum("bqkgd,bckd->bkgqc", doblk, vblk)
             ds = torch.where(ok, p * (dp - row_d), 0.0)
             dvv[:, k0:k0 + BLOCK] += torch.einsum("bkgqc,bqkgd->bckd", p, doblk)
@@ -244,12 +270,8 @@ def _launch_forward(q, k, v, causal: bool, window: int, want_lse: bool):
     statistic (float32 ``(B, H, S)``; else a null pointer, and the kernel
     writes nothing more than it did without one)."""
     bf16 = q.dtype == torch.bfloat16
-    if bf16 and not all(tma_layout_ok(x) for x in (q, k, v)):
-        raise ValueError(
-            "flash_attention on bfloat16 reads q, k, v with TMA: each needs "
-            "its last stride 1 and its other strides and base address "
-            "16-byte aligned; got strides "
-            f"{q.stride()}, {k.stride()}, {v.stride()}")
+    if bf16:
+        _require_tma("flash_attention", q, k, v)
     b, s, h, d = q.shape
     t, hk, dv = k.shape[1], k.shape[2], v.shape[3]
     out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
@@ -279,9 +301,12 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     ``csrc/attention_bwd.cu`` (``Δ = rowsum(dout·out)``, then dk and dv,
     then dq; each reads q, k, v, out and dout through their strides, so
     nothing is copied) and count one in
-    ``flash_attention.backward_launches``, or raise.  ``need`` names the
-    gradients wanted (q, k, v): dq's kernel is left out when q's is not,
-    dk and dv's when neither is; a gradient left out is None."""
+    ``flash_attention.backward_launches``, or raise.  The tensor-core route
+    (:func:`backward_route`) reads q, k and v with TMA, so each needs
+    :func:`tma_layout_ok` as the bf16 forward does; dout may lie any way.
+    ``need`` names the gradients wanted (q, k, v): dq's kernel is left out
+    when q's is not, dk and dv's when neither is; a gradient left out is
+    None.  Raises when a row sees no key."""
     _check(q, k, v, window)
     _check_bwd(q, k, v, out, lse, dout)
     if q.device.type == "cpu":
@@ -290,6 +315,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         return tuple(g if n else None for g, n in zip(grads, need))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention has no kernel for {q.device}")
+    _refuse_rows_without_keys(q.shape[1], k.shape[1], int(window))
     b, s, h, d = q.shape
     t, hk, dv = k.shape[1], k.shape[2], v.shape[3]
     want_q, want_kv = bool(need[0]), bool(need[1] or need[2])
@@ -307,6 +333,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     if not lse.is_contiguous():
         raise ValueError("flash_attention backward reads lse contiguous, as "
                          "the forward writes it")
+    if backward_route(q.dtype, d, dv) == "wgmma":
+        _require_tma("flash_attention backward", q, k, v)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     dims = (ctypes.c_int64 * 7)(b, s, t, h, hk, d, dv)
     strides = (ctypes.c_int64 * 20)(*q.stride(), *k.stride(), *v.stride(),
@@ -361,12 +389,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     call goes through :class:`_FlashFunction`: the forward also writes the
     row statistic, and the backward runs :func:`flash_attention_bwd` (on
     the card its kernels, counted in ``flash_attention.backward_launches``;
-    on the CPU the plain versions).
+    on the CPU the plain versions).  Under autograd a call with a row that
+    sees no key (``window > 0`` and ``S > T - 1 + window``) raises
+    ``ValueError`` before anything runs.
     """
     _check(q, k, v, window)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention has no kernel for {q.device}")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        _refuse_rows_without_keys(q.shape[1], k.shape[1], int(window))
         return _FlashFunction.apply(q, k, v, bool(causal), int(window))
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)

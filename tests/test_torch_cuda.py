@@ -711,7 +711,7 @@ def test_zoo_forward_and_decode_card_match_cpu(cuda_device, monkeypatch, arch,
 
 
 @requires_cuda
-def test_flash_attention_refuses_autograd_on_card(cuda_device, monkeypatch):
+def test_flash_attention_autograd_on_card(cuda_device, monkeypatch):
     """B6 under autograd on the card (it refused it until it had a
     backward): the forward launches once, the backward once, each counted,
     and the gradients of q, k and v are autograd's through the plain
@@ -762,7 +762,9 @@ def test_flash_attention_refuses_autograd_on_card(cuda_device, monkeypatch):
 
 #: the backward's instances: chip_smoke.py's (Qwen3-0.6B's train layer,
 #: granite's head size, MLA's 192 / 128, hymba's window, whisper's cross
-#: shape) and edge cases: odd S and T, D = 256, rows that see no key
+#: shape) and edge cases: odd S and T, S and T off every tile (Qwen's and
+#: MLA's head sizes, and a causal window), D = 256, a window over a
+#: shorter T in which the last row sees one key
 BWD_CASES = [
     (1, 4096, 4096, 16, 8, 128, 128, True, 0),
     (1, 2048, 2048, 16, 8, 64, 64, True, 0),
@@ -771,8 +773,11 @@ BWD_CASES = [
     (2, 448, 1500, 6, 6, 64, 64, False, 0),
     (1, 333, 517, 4, 2, 96, 96, True, 0),
     (1, 517, 333, 4, 2, 40, 72, False, 0),
+    (1, 4097, 4097, 8, 4, 128, 128, True, 0),
+    (1, 1057, 1057, 4, 4, 192, 128, True, 0),
+    (1, 1000, 1000, 4, 2, 64, 64, True, 100),
     (1, 300, 300, 4, 2, 256, 256, True, 37),
-    (1, 700, 300, 4, 2, 64, 64, False, 64),      # rows 363.. see no key
+    (1, 700, 300, 4, 2, 64, 64, False, 401),     # row 699 sees key 299 only
 ]
 
 
@@ -822,6 +827,37 @@ def test_flash_attention_bwd_matches_plain_on_card(cuda_device, dtype, b, s,
     _grads_close(got, want, dtype)
     plain = fa.flash_attention_bwd_plain(q, k, v, out, lse, g, **kw)
     _grads_close(got, plain, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_refuses_rows_without_keys_on_card(cuda_device,
+                                                           dtype):
+    """A call with rows that see no key (window 64 over 300 keys: rows
+    363.. see none) raises under autograd before anything launches, and so
+    does the backward on its own; without autograd the forward answers."""
+    q, k, v, g = _bwd_inputs(dtype, 1, 700, 300, 4, 2, 64, 64, cuda_device, 9)
+    fa = flash_attention
+    kw = dict(causal=False, window=64)
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = (fa.flash_attention.launches,
+              fa.flash_attention.backward_launches)
+    with pytest.raises(ValueError, match="rows 363..699 see no key"):
+        fa.flash_attention(*xs, **kw)
+    out, lse = fa._launch_forward(q, k, v, False, 64, True)
+    with pytest.raises(ValueError, match="see no key"):
+        fa.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention.launches,
+            fa.flash_attention.backward_launches) == (before[0] + 1,
+                                                      before[1])
+    with torch.no_grad():
+        got = fa.flash_attention(*xs, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-5 if
+                               dtype == torch.float32 else 2e-2, rtol=0)
+    torch.testing.assert_close(got[0, 363:].float(), v.float().mean(
+        1).repeat_interleave(2, dim=1).expand(337, 4, 64), atol=3e-5 if
+        dtype == torch.float32 else 2e-2, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -37,7 +37,7 @@ CASES = [
     ("gqa5-window", 1, 512, 512, 10, 2, 32, 32, True, 100, 128, 128),
     ("cross-ragged", 2, 256, 300, 4, 2, 32, 32, False, 0, 128, 128),
     ("dv-ne-d", 1, 384, 384, 4, 2, 48, 32, True, 0, 128, 128),
-    ("no-key-rows", 1, 512, 200, 4, 2, 32, 32, False, 64, 128, 128),
+    ("window-ragged", 1, 512, 200, 4, 2, 32, 32, False, 400, 128, 128),
 ]
 DTYPES = ("float32", "bfloat16")
 PLAIN_TOL = 1e-5                   # of each gradient's largest |g|
@@ -91,13 +91,6 @@ np.savez(f"{tmp}/reference.npz", **{k: np.asarray(v) for k, v in out.items()})
 """
 
 
-def _dead(case) -> np.ndarray:
-    """Rows that see no key (window > 0 and row >= T - 1 + window)."""
-    _, _, s, t, *_, window, _, _ = case
-    rows = np.arange(s)
-    return (rows >= t - 1 + window) if window > 0 else np.zeros(s, bool)
-
-
 def _attention_inputs(case) -> dict:
     name, b, s, t, h, hk, d, dv, *_ = case
     rng = np.random.default_rng(s * 7 + t + d)
@@ -122,13 +115,8 @@ def results(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("flash_bwd")
     data, inputs, fams = {}, {}, {}
     for case in CASES:
-        x = _attention_inputs(case)
-        # the reference's own cotangent leaves out the rows that see no key,
-        # whose masked scores it differentiates through its additive mask
-        x_ref = dict(x, g=np.where(_dead(case)[None, :, None, None], 0.0,
-                                   x["g"]).astype(np.float32))
-        inputs[case[0]] = x, x_ref
-        for k, a in x_ref.items():
+        inputs[case[0]] = x = _attention_inputs(case)
+        for k, a in x.items():
             data[f"att/{case[0]}/{k}"] = a
     for arch in LOSS_ARCHS:
         cfg = get_smoke(arch).with_(attn_q_block=LOSS_Q_BLOCK)
@@ -146,7 +134,7 @@ def results(tmp_path_factory):
     try:
         port = {}
         for case in CASES:
-            port[case[0]] = {dt: _port_case(case, *inputs[case[0]], dt)
+            port[case[0]] = {dt: _port_case(case, inputs[case[0]], dt)
                              for dt in DTYPES}
         losses = {}
         for arch, (p, b) in fams.items():
@@ -167,12 +155,11 @@ def results(tmp_path_factory):
             "reference": dict(np.load(tmp / "reference.npz"))}
 
 
-def _port_case(case, x, x_ref, dtype: str) -> dict:
+def _port_case(case, x, dtype: str) -> dict:
     """The port's gradients of one case: the plain backward from the plain
     forward's out and lse, autograd through the plain forward, the
-    Function, the Function on the reference's cotangent, and (for bf16)
-    the plain backward and autograd on the float32 widening of the same
-    bf16 values."""
+    Function, and (for bf16) the plain backward and autograd on the float32
+    widening of the same bf16 values."""
     _, _, s, t, h, hk, d, dv, causal, window, _, _ = case
     kw = dict(causal=causal, window=window)
     q, k, v, g = (_as(x[n], dtype) for n in "qkvg")
@@ -187,9 +174,6 @@ def _port_case(case, x, x_ref, dtype: str) -> dict:
             fa.flash_attention_plain(*xs, **kw), xs, gg)
     xs = [a.clone().requires_grad_(True) for a in (q, k, v)]
     out["function"] = torch.autograd.grad(fa.flash_attention(*xs, **kw), xs, g)
-    xs = [a.clone().requires_grad_(True) for a in (q, k, v)]
-    out["function_ref"] = torch.autograd.grad(
-        fa.flash_attention(*xs, **kw), xs, _as(x_ref["g"], dtype))
     return out
 
 
@@ -198,7 +182,7 @@ def _port_case(case, x, x_ref, dtype: str) -> dict:
 def test_plain_backward_is_autograd_of_plain_forward(results, case, dtype):
     """In float32 (bf16 inputs widened): the recompute-from-lse backward
     equals autograd through the plain forward within 1e-5 of each
-    gradient's largest |g|, rows that see no key included."""
+    gradient's largest |g|."""
     got = results["port"][case][dtype]
     for a, w in zip(got["f32bwd_plain"], got["f32autograd"]):
         assert _rel(a, w) <= PLAIN_TOL
@@ -222,31 +206,41 @@ def test_function_on_cpu_is_the_plain_backward(results, case, dtype):
 def test_function_matches_reference_vjp(results, case, dtype):
     """The Function's gradients against ``jax.vjp`` of the reference's
     ``_blockwise_attention`` (1e-4 in float32, 2e-2 in bfloat16, of each
-    gradient's largest |g|); the cotangent is zero on rows that see no
-    key, so neither side's handling of fully masked rows enters."""
-    got = results["port"][case][dtype]["function_ref"]
+    gradient's largest |g|), on every row: each case's rows all see a key
+    (the Function refuses any other)."""
+    got = results["port"][case][dtype]["function"]
     ref = results["reference"]
     for x, a in zip("qkv", got):
         want = ref[f"att/{case}/{dtype}/d{x}"]
         assert _rel(a.float().numpy(), want) <= REF_TOL[dtype], x
 
 
-def test_rows_without_keys_weigh_every_key():
-    """A row that sees no key gives dq 0 and dv = dout / T on every key,
-    from both the plain backward and the Function."""
-    case = CASES[-1]
-    _, _, s, t, h, hk, d, dv, causal, window, _, _ = case
-    x = _attention_inputs(case)
-    dead = _dead(case)
-    g = np.where(dead[None, :, None, None], x["g"], 0.0).astype(np.float32)
-    q, k, v, gt = (torch.from_numpy(a) for a in (x["q"], x["k"], x["v"], g))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_autograd_refuses_rows_without_keys(dtype):
+    """A window over a shorter T leaves rows without a key (window 64 over
+    200 keys: rows 263..511).  Under autograd ``flash_attention`` raises on
+    such a call before computing anything, and both backward functions
+    raise on its shapes; without autograd the forward still answers, the
+    mean of v on those rows."""
+    s, t, h, hk, d, window = 512, 200, 4, 2, 32, 64
+    x = _attention_inputs(("rows-without-keys", 1, s, t, h, hk, d, d))
+    q, k, v, g = (_as(x[n], dtype) for n in "qkvg")
+    kw = dict(causal=False, window=window)
     xs = [a.clone().requires_grad_(True) for a in (q, k, v)]
-    dq, dk, dvv = torch.autograd.grad(
-        fa.flash_attention(*xs, causal=causal, window=window), xs, gt)
-    assert dead.any() and not dq.any() and not dk.any()
-    want = gt.reshape(1, s, hk, h // hk, dv).sum((1, 3)) / t   # (1, hk, dv)
-    torch.testing.assert_close(dvv, want[:, None].expand_as(dvv), atol=1e-6,
-                               rtol=1e-5)
+    with pytest.raises(ValueError, match="rows 263..511 see no key"):
+        fa.flash_attention(*xs, **kw)
+    out, lse = fa.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    for bwd in (fa.flash_attention_bwd, fa.flash_attention_bwd_plain):
+        with pytest.raises(ValueError, match="see no key"):
+            bwd(q, k, v, out, lse, g, **kw)
+    with torch.no_grad():
+        got = fa.flash_attention(*xs, **kw)
+    assert torch.equal(got, out)
+    mean = v.float().mean(1).repeat_interleave(h // hk, dim=1)   # (1, h, d)
+    torch.testing.assert_close(got[0, t - 1 + window:].float(),
+                               mean.expand(s - t + 1 - window, h, d),
+                               atol=1e-6 if dtype == "float32" else 2 ** -7,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("arch", LOSS_ARCHS)
